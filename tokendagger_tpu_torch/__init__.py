@@ -1,0 +1,35 @@
+"""PyTorch/CUDA port of tokendagger_tpu.
+
+A tiktoken-compatible BPE tokenizer whose device path turns raw byte
+windows into exact token ids. This package holds the port of the window
+pipeline (``ResidentStream``): plain torch for the table probe and the
+glue, hand-written CUDA kernels for Hopper (``csrc/``) where the JAX
+package has Pallas kernels. Entry points run on the card unless the
+caller passes ``device="cpu"``; on CPU tensors every kernel's wrapper runs
+its plain torch version instead.
+"""
+
+from .hostengine import HostEngine, byte_pair_encode, byte_pair_merge
+from .residentstream import ResidentStream, StreamStats
+from .vocab import (
+    CL100K_PATTERN,
+    GPT2_PATTERN,
+    LLAMA4_PATTERN,
+    classify_pattern,
+    load_hf_special_tokens,
+    load_tiktoken_model,
+)
+
+__all__ = [
+    "CL100K_PATTERN",
+    "GPT2_PATTERN",
+    "HostEngine",
+    "LLAMA4_PATTERN",
+    "ResidentStream",
+    "StreamStats",
+    "byte_pair_encode",
+    "byte_pair_merge",
+    "classify_pattern",
+    "load_hf_special_tokens",
+    "load_tiktoken_model",
+]
