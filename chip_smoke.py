@@ -1,21 +1,40 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--mb 16]
+    python3 chip_smoke.py [--seed 0] [--mb 16] [--engine-mb 12]
 
 1. Builds the CUDA kernels of tokendagger_tpu_torch (one nvcc per source,
    in parallel) and prints the card, its power limit and the build time.
-2. Holds each kernel of the window pipeline against its plain torch
-   version on the card, at the main path's shapes (8 windows of 1 MB,
+2. Holds each kernel of the ASCII window pipeline against its plain torch
+   version on the card, at that path's shapes (8 windows of 1 MB,
    p_cap 349,568), on seeded ASCII windows plus edge cases (an empty
    window, a one-piece window, punctuation that overflows p_cap, a length
    that is not a multiple of 32, garbage bytes beyond the length). Every
    output must be equal; each kernel's median time (CUDA events) is
    printed beside its bound and the plain version's time.
-3. Drives ResidentStream on the card over at least 16 MB with a seeded
+3. Holds the kernels of the public API's engine against their plain
+   versions at the engine's shapes: the UTF-8 decode (K9) on 4 MB and
+   16 MB windows of seeded multi-script text and invalid UTF-8, and K1's
+   codepoint entry on 4 MB multi-script windows for all four profiles.
+   After step 5's run, every kernel of the engine's window pipeline (K9,
+   K4 in the decode's compaction, K1, K2+K3, K4 in finalize) is held
+   against its plain version stage by stage on one 4 MB window and on
+   one grown 16 MB window of that run's texts.
+4. Drives ResidentStream on the card over at least 16 MB with a seeded
    200,000-rank stand-in vocabulary, checks the first batch's ids against
    the host engine, no host fallback, and one launch of each kernel per
    batch, and prints the wall rate and per-stage times.
-4. Prints a "kernels" JSON line, then the card's name and power limit, and
+5. Drives Tokenizer(backend="device") over at least 12 MB of seeded
+   multi-script text with specials sprinkled over its last third, so
+   that the first 8 MB segment runs in 4 MB windows cut at safe offsets
+   (a 200,000-rank stand-in that also holds the text's own pieces):
+   encode, a 64-text encode_batch and the device decode must equal the
+   host engine and the text. Prints the wall rate with its host-clock
+   split, the kernels' launches per window, the per-stage device times
+   of one 4 MB window, and the wall rate of an ordinary encode with 1 MB
+   and with 4 MB windows of the same text plus a 5 MB digit run (one
+   class run, so windows grow to 16 MB), whose ids must equal the host
+   engine's.
+6. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
 
@@ -34,6 +53,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12       # H100 SXM 32-bit non-tensor rate (fp32 figure)
 WINDOW, BATCH = 1 << 20, 8
+ENGINE_WINDOW = 1 << 22     # the engine's card window (engine.CARD_WINDOW)
+MAX_WINDOW = 1 << 24        # its largest, grown window (engine.MAX_WINDOW)
 
 WORDS = (
     "the of and to in a is that for it as was with be by on not he this are "
@@ -77,18 +98,67 @@ def corpus(n_bytes: int, seed: int) -> str:
     return "".join(parts)[:n_bytes]
 
 
-def standin_vocab(n_ranks: int, seed: int) -> dict[bytes, int]:
-    """256 bytes, every pretoken of a seeded corpus sample with all its
-    prefixes, then seeded random ASCII strings of 2-16 bytes."""
+# multi-script words: Latin accents, Greek, Cyrillic, CJK, Arabic, Hebrew,
+# emoji (ZWJ, skin tone, flags), combining marks, other digits, and the
+# fold letters U+017F / U+212A after apostrophes
+SCRIPT_WORDS = (
+    "café naïve Übermäßig schön Ça résumé ÉCOLE ǅemal Γειά σου Κόσμε ΑΘΗΝΑ "
+    "λόγος Здравствуйте мир МОСКВА ёлка 日本語 中文文本 テキスト 한국어 の "
+    "مرحبا שלום עולם 🙂 👍🏽 🇺🇸 🎉🎉 e\u0301\u0302 à a\u0308 ٣٤ ²³ Ⅻ "
+    "I'\u017fT x'\u212a it'\u017f \u3000x"
+).split(" ") + ["👩\u200d👩\u200d👧", "\u3000", "\u3000\u3000", "\u00a0"]
+SEPARATORS = [" ", " ", " ", " ", ", ", ". ", "\n", "\u3000", "'s ",
+              "'LL ", " 12 ", "! ", "\n\n", " - "]
+SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|eot|>",
+            "<|header_start|>", "<|header_end|>", "<|python_start|>",
+            "<|image|>", "<|finetune_right_pad|>")
+
+
+def multiscript(n_bytes: int, seed: int) -> str:
+    """About n_bytes of seeded text: the English word list and the
+    multi-script words, mixed, with punctuation, digits and contractions."""
+    rng = np.random.default_rng(seed)
+    words = WORDS + SCRIPT_WORDS
+    parts, size = [], 0
+    while size < n_bytes:
+        k = 1 << 16
+        w = rng.integers(len(words), size=k)
+        sp = rng.integers(len(SEPARATORS), size=k)
+        chunk = "".join(words[i] + SEPARATORS[j] for i, j in zip(w, sp))
+        parts.append(chunk)
+        size += len(chunk.encode())
+    raw = "".join(parts).encode()[:n_bytes]
+    return raw.decode("utf-8", errors="ignore")
+
+
+def with_specials(text: str, seed: int, every: int = 1 << 16,
+                  start: int = 0) -> str:
+    """``text`` with one of SPECIALS inserted about every ``every`` chars
+    from char ``start`` on."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.integers(start, len(text),
+                                (len(text) - start) // every))
+    parts, prev = [], 0
+    for c in cuts.tolist():
+        parts += [text[prev:c], SPECIALS[int(rng.integers(len(SPECIALS)))]]
+        prev = c
+    return "".join(parts + [text[prev:]])
+
+
+def standin_vocab(n_ranks: int, seed: int,
+                  extra: str | None = None) -> dict[bytes, int]:
+    """256 bytes, every pretoken of a seeded corpus sample (and of
+    ``extra``) with all its byte prefixes, then seeded random ASCII
+    strings of 2-16 bytes."""
     from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine
 
     ranks = {bytes([i]): i for i in range(256)}
-    sample = corpus(1 << 20, seed + 1)
     host = HostEngine(LLAMA4_PATTERN, ranks, {})
-    for a, b in host.split_spans(sample):
-        p = sample[a:b].encode()
-        for k in range(2, len(p) + 1):
-            ranks.setdefault(p[:k], len(ranks))
+    for sample in (corpus(1 << 20, seed + 1), extra or ""):
+        for a, b in host.split_spans(sample):
+            p = sample[a:b].encode()
+            for k in range(2, len(p) + 1):
+                ranks.setdefault(p[:k], len(ranks))
     rng = np.random.default_rng(seed + 2)
     while len(ranks) < n_ranks:
         k = int(rng.integers(2, 17))
@@ -250,6 +320,100 @@ def check_kernels(seed: int, dev) -> list[dict]:
     return rows
 
 
+def utf8_windows(seed: int, n: int, dev) -> list[torch.Tensor]:
+    """(1, n) uint8 windows: multi-script text, the same laced with stray
+    continuations, 0xF5-0xFF leads and truncated sequences, 4-byte emoji,
+    and random bytes."""
+    rng = np.random.default_rng(seed)
+    text = multiscript(n, seed).encode()
+    bad = np.frombuffer(text, np.uint8).copy()
+    at = rng.integers(0, len(bad), len(bad) // 64)
+    bad[at] = rng.choice(np.array([0x80, 0xBF, 0xC3, 0xE2, 0xF0, 0xF5, 0xF8,
+                                   0xFF], np.uint8), len(at))
+    raws = [text, bad[:-3].tobytes() + b"\xf0\x9f\x99",
+            "\U0001f642".encode() * (n // 4),
+            rng.integers(0, 256, n).astype(np.uint8).tobytes()]
+    out = []
+    for raw in raws:
+        buf = np.zeros((1, n), np.uint8)
+        buf[0, : len(raw)] = np.frombuffer(raw[:n], np.uint8)
+        out.append(torch.from_numpy(buf).to(dev))
+    return out
+
+
+def check_engine_kernels(seed: int, dev) -> list[dict]:
+    """K9 and K1's codepoint entry against their plain versions at the
+    engine's shapes (one window of 4 MB, or 16 MB grown)."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+
+    rows = []
+    # ---- K9: UTF-8 decode, 4 MB windows and a 16 MB one ----
+    wins = utf8_windows(seed, ENGINE_WINDOW, dev)
+    wins.append(utf8_windows(seed + 1, 4 * ENGINE_WINDOW, dev)[0])
+    err = 0
+    for w in wins:
+        err = max(err, max_abs_err(PT.utf8_decode_block(w),
+                                   PT.utf8_decode_block_plain(w)))
+    print(f"K9 utf8_decode_block: max_abs_err {err} over {len(wins)} "
+          "windows (4 x 4 MB, 1 x 16 MB)")
+    if err:
+        raise AssertionError("K9 differs from its plain version")
+    timing = {}
+    for name, w in (("4 MB", wins[0]), ("16 MB", wins[-1])):
+        n = w.numel()
+        timing[name] = (median_ms(lambda: PT.utf8_decode_block(w)),
+                        median_ms(lambda: PT.utf8_decode_block_plain(w),
+                                  reps=5),
+                        *bound(9 * n, 20 * n))
+        print(f"K9 utf8_decode_block {name}: {timing[name][0]:.4f} ms "
+              f"(plain {timing[name][1]:.3f} ms, bound "
+              f"{timing[name][2]:.5f} ms by {timing[name][3]})")
+    ms, plain, bms, bby = timing["4 MB"]
+    rows.append(dict(
+        name="utf8_decode_block", route="cuda",
+        source="tokendagger_tpu_torch/csrc/utf8.cu",
+        replaces="tokendagger_tpu/ops/pallas_scan.py:91",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
+        library_ms=None))
+
+    # ---- K1, codepoint entry: 4 MB multi-script windows ----
+    nb = torch.tensor([ENGINE_WINDOW], dtype=torch.int32, device=dev)
+    cps = []
+    for w in wins[:2]:
+        cp, _, _, m = PT.utf8_decode(w, nb)
+        cps.append((cp, m))
+    cp_short = cps[0][0].clone()
+    m_short = torch.tensor([12345], dtype=torch.int32, device=dev)
+    cps.append((cp_short, m_short))        # a ragged length, garbage after
+    cp_err = 0
+    for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+        err = 0
+        for cp, m in cps:
+            got = BP.piece_starts_chars(cp, m, profile=prof, packed_out=True)
+            want = BP.piece_starts_chars_plain(cp, m, profile=prof)
+            err = max(err, max_abs_err([got], [want]))
+        print(f"K1 piece_starts_cp[{prof}]: max_abs_err {err}")
+        if err:
+            raise AssertionError(f"K1 codepoint entry {prof} differs")
+        cp_err = max(cp_err, err)
+    cp, m = cps[0]
+    N = cp.shape[1]
+    ms = median_ms(lambda: BP.piece_starts_chars(cp, m, packed_out=True))
+    plain = median_ms(lambda: BP.piece_starts_chars_plain(cp, m), reps=3)
+    passes = BP.starts_passes("llama4", N)
+    bms, bby = bound(4 * N + N / 8 + 4, passes * N / 32)
+    print(f"K1 piece_starts_cp (one 4 MB window): {ms:.4f} ms (plain "
+          f"{plain:.3f} ms, bound {bms:.5f} ms by {bby}; {passes} passes)")
+    rows.append(dict(
+        name="piece_starts_cp", route="cuda",
+        source="tokendagger_tpu_torch/csrc/piece_starts.cu",
+        replaces="tokendagger_tpu/ops/bitplane.py:1152",
+        max_abs_err=cp_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
+        library_ms=None))
+    return rows
+
+
 def run_stream(seed: int, mb: int, dev, *, window=WINDOW, batch=BATCH,
                n_ranks=200_000) -> dict:
     """ResidentStream over >= mb MB; returns the kernels' launch counts."""
@@ -332,10 +496,245 @@ def stage_times(rs, wins) -> None:
         f"{k} {v:.4f}" for k, v in t.items()))
 
 
+def engine_counters():
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+
+    return dict(utf8_decode_block=PT.utf8_decode_block,
+                piece_starts_cp=BP.piece_starts_chars,
+                compact_piece_keys=CP.compact_piece_keys,
+                compact_by_mask=CP.compact_by_mask)
+
+
+def first_diff(a: list, b: list) -> int:
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def run_engine(seed: int, mb: int, dev, *,
+               n_ranks=200_000) -> tuple[dict, dict]:
+    """Tokenizer(backend="device") over >= mb MB of multi-script text with
+    specials; returns the engine kernels' launch counts and their largest
+    errors against the plain versions on the engine's windows."""
+    from tokendagger_tpu_torch import (
+        LLAMA4_PATTERN, EngineStats, HostEngine, Tokenizer,
+    )
+
+    t = time.perf_counter()
+    ranks = standin_vocab(n_ranks, seed, extra=multiscript(1 << 20,
+                                                          seed + 4))
+    specials = {s: n_ranks + i for i, s in enumerate(SPECIALS)}
+    plain_text = multiscript(mb << 20, seed + 5)
+    text = with_specials(plain_text, seed + 6, start=2 * len(plain_text) // 3)
+    nbytes = len(text.encode())
+    tok = Tokenizer("standin", pat_str=LLAMA4_PATTERN, mergeable_ranks=ranks,
+                    special_tokens=specials, device=dev)
+    host = HostEngine(LLAMA4_PATTERN, ranks, specials)
+    tok.encode(text[: 1 << 20], allowed_special="all")  # warm-up
+    eng = tok._get_device()
+    print(f"engine: stand-in vocab {len(ranks)} ranks + {len(specials)} "
+          f"specials, text {nbytes} B, set-up {time.perf_counter() - t:.1f} s")
+
+    counters = engine_counters()
+    for k in counters.values():
+        k.launches = 0
+    eng.stats = EngineStats()
+    t = time.perf_counter()
+    ids = tok.encode(text, allowed_special="all")
+    wall = time.perf_counter() - t
+    launches = {n: k.launches for n, k in counters.items()}
+    st = eng.stats
+    other = wall - st.safe_cut_s - st.device_s - st.drain_s - st.host_s
+    print(f"engine encode: {nbytes} B in {wall:.4f} s = "
+          f"{nbytes / 1e6 / wall:.1f} MB/s wall; {st.windows} windows, "
+          f"{st.cut_windows} cut at a safe offset, {st.grown_windows} grown, "
+          f"{st.host_advance_windows} host-advance, "
+          f"{st.spliced_pieces} spliced pieces, {len(ids)} ids")
+    print(f"engine wall split (host clock, s): safe_cut {st.safe_cut_s:.4f}, "
+          f"device {st.device_s:.4f}, drain {st.drain_s:.4f}, host_advance "
+          f"{st.host_s:.4f}, specials/lists {other:.4f}")
+    print("engine launches: " + ", ".join(
+        f"{n} {v} ({v / max(st.windows, 1):.2f}/window)"
+        for n, v in launches.items()))
+    if dev != "cpu" and any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the engine path never ran: "
+                             f"{launches}")
+    if dev != "cpu" and st.cut_windows < 2:
+        raise AssertionError("the 4 MB windows were not cut at safe offsets")
+
+    t = time.perf_counter()
+    want = host.encode(text, set(specials))[0]
+    if ids != want:
+        raise AssertionError(f"engine ids differ from the host engine at "
+                             f"id {first_diff(ids, want)}")
+    print(f"engine ids equal the host engine ({len(ids)} ids, host "
+          f"{time.perf_counter() - t:.1f} s)")
+
+    rng = np.random.default_rng(seed + 7)
+    cuts = np.sort(rng.integers(0, len(text), 128)).tolist()
+    texts = [text[a : a + (b - a) // int(rng.integers(1, 40))]
+             for a, b in zip(cuts[0::2], cuts[1::2])]
+    texts[0], texts[1] = "", text[: 5 << 20]
+    got = tok.encode_batch(texts, allowed_special="all")
+    for i, tx in enumerate(texts):
+        w = host.encode(tx, set(specials))[0]
+        if got[i] != w:
+            raise AssertionError(f"encode_batch text {i} differs at id "
+                                 f"{first_diff(got[i], w)}")
+    print(f"engine encode_batch: {len(texts)} texts "
+          f"({sum(len(x.encode()) for x in texts)} B) equal the host engine")
+
+    t = time.perf_counter()
+    back = tok.decode(ids)
+    dt = time.perf_counter() - t
+    if back != text:
+        raise AssertionError("decode(encode(text)) != text")
+    print(f"engine decode round trip: equal ({dt:.4f} s, device decode)")
+
+    # an ordinary text with a 5 MB digit run (one class run: windows
+    # grow to 16 MB) a quarter of the way in
+    rng = np.random.default_rng(seed + 8)
+    digits = (rng.integers(0, 10, 5 << 20) + 48).astype(np.uint8)
+    at = len(plain_text) // 4
+    grown_text = (plain_text[:at] + " " + digits.tobytes().decode() + " "
+                  + plain_text[at:])
+    window_choice(eng, host, grown_text)
+    errs = {}
+    if dev != "cpu":
+        run_at = len(plain_text[:at].encode()) + 1
+        errs = engine_windows(eng, [
+            ("4 MB", text.encode()[:ENGINE_WINDOW], ENGINE_WINDOW),
+            ("16 MB grown", grown_text.encode()[run_at:run_at + MAX_WINDOW],
+             MAX_WINDOW)], dev)
+    return launches, errs
+
+
+def engine_windows(eng, windows, dev) -> dict:
+    """Every kernel of the engine's window pipeline against its plain
+    version, stage by stage as ``DeviceEngine.window_pipeline`` runs them,
+    on (label, window bytes, scan size) windows, each cut at its safe
+    offset; then the per-stage device times of the first (CUDA events).
+    Returns the largest error of each kernel."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+    from tokendagger_tpu_torch.ops.fused import caps_for, finalize_host
+    from tokendagger_tpu_torch.ops.join import vocab_probe8
+
+    errs = dict.fromkeys(("utf8_decode_block", "piece_starts_cp",
+                          "compact_piece_keys", "compact_by_mask"), 0)
+    prof = eng._profile
+    rows, mask = eng.tables.vhash8_rows, eng.tables.vhash8_mask
+    for label, raw, N in windows:
+        n = len(raw)
+        buf = np.zeros((1, N), np.uint8)
+        buf[0, :n] = np.frombuffer(raw, np.uint8)
+        d = torch.from_numpy(buf).to(dev)
+        nb = torch.tensor([n], dtype=torch.int32, device=dev)
+        trim = eng._safe_cut_threshold(raw)
+        p_cap = caps_for(N)["p_cap"]
+        e = {}
+        cp_at, lead = PT.utf8_decode_block(d)
+        e["utf8_decode_block"] = max_abs_err(
+            (cp_at, lead), PT.utf8_decode_block_plain(d))
+        # K4 as utf8_decode calls it: codepoints and byte offsets of leads
+        idx = torch.arange(N, dtype=torch.int32, device=dev)
+        is_lead = (lead != 0) & (idx < nb[:, None])
+        arrs = [cp_at, idx.expand(1, N).contiguous()]
+        k4 = [max_abs_err(CP.compact_by_mask(arrs, is_lead, fill=0),
+                          CP.compact_by_mask_plain(arrs, is_lead, fill=0))]
+        cp, cob, _, m = PT.utf8_decode(d, nb)
+        words = BP.piece_starts_chars(cp, m, profile=prof, packed_out=True)
+        e["piece_starts_cp"] = max_abs_err(
+            [words], [BP.piece_starts_chars_plain(cp, m, profile=prof)])
+        st = BP.unpack_mask(words)
+        stb = PT.starts_to_bytes(st, cob, d, nb)
+        keys = CP.compact_piece_keys(stb, d, nb, p_cap)
+        e["compact_piece_keys"] = max_abs_err(
+            keys, CP.compact_piece_keys_plain(stb, d, nb, p_cap))
+        rank = vocab_probe8(*keys[2:6], keys[1], rows, mask)
+        # K4 in finalize: the same function on the CPU runs K4's plain
+        # version, and every output but the sums is K4's
+        fin_args = (keys[0], keys[1], rank, keys[6])
+        got = finalize_host(*fin_args, trim, p_cap=p_cap)
+        want = finalize_host(*(a.cpu() for a in fin_args), trim, p_cap=p_cap)
+        k4.append(max_abs_err([g.cpu() for g in got], list(want)))
+        e["compact_by_mask"] = max(k4)
+        npc, consumed = int(keys[6]), int(got[4])
+        print(f"engine window {label} ({n} B, trim {trim}, consumed "
+              f"{consumed}, {npc} pieces, p_cap {p_cap}): max_abs_err "
+              + ", ".join(f"{k} {v}" for k, v in e.items()))
+        if any(e.values()):
+            raise AssertionError(f"engine window {label}: a kernel differs "
+                                 f"from its plain version: {e}")
+        if not 0 < consumed <= trim < n:
+            raise AssertionError(f"engine window {label} was not cut at a "
+                                 "safe offset")
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        if label != windows[0][0] or dev == "cpu":
+            continue
+        t = dict(
+            utf8_decode=median_ms(lambda: PT.utf8_decode(d, nb)),
+            piece_starts=median_ms(lambda: BP.piece_starts_chars(
+                cp, m, profile=prof)),
+            starts_to_bytes=median_ms(
+                lambda: PT.starts_to_bytes(st, cob, d, nb)),
+            compact=median_ms(
+                lambda: CP.compact_piece_keys(stb, d, nb, p_cap)),
+            probe=median_ms(lambda: vocab_probe8(*keys[2:6], keys[1], rows,
+                                                 mask)),
+            finalize=median_ms(lambda: finalize_host(
+                keys[0], keys[1], rank, keys[6], trim, p_cap=p_cap)),
+            pipeline=median_ms(lambda: eng.window_pipeline(d, nb, trim)),
+        )
+        print(f"engine stage ms (one {label} window, {npc} pieces, p_cap "
+              f"{p_cap}): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    return errs
+
+
+def window_choice(eng, host, text: str) -> None:
+    """Ordinary encode of ``text`` with 4 MB and 1 MB starting windows, in
+    turns (4, 1, 1, 4) on the same engine; every run's ids must equal the
+    host engine's, and the 4 MB runs must cut and grow windows."""
+    from tokendagger_tpu_torch import EngineStats
+
+    data = text.encode()
+    rates = {1 << 22: [], 1 << 20: []}
+    t = time.perf_counter()
+    want = host.encode_ordinary(text)
+    host_s = time.perf_counter() - t
+    for w in (1 << 22, 1 << 20, 1 << 20, 1 << 22):
+        eng._window, eng.stats = w, EngineStats()
+        t = time.perf_counter()
+        ids = eng.encode_stream(data)
+        rates[w].append(len(data) / 1e6 / (time.perf_counter() - t))
+        st = eng.stats
+        if ids.tolist() != want:
+            raise AssertionError(
+                f"{w >> 20} MB windows differ from the host engine at id "
+                f"{first_diff(ids.tolist(), want)}")
+    eng._window = ENGINE_WINDOW
+    print(f"engine ordinary encode ({len(data)} B with a 5 MB digit run; "
+          f"last run, 4 MB windows): {st.windows} windows, {st.cut_windows} "
+          f"cut at a safe offset, {st.grown_windows} grown, "
+          f"{st.host_advance_windows} host-advance; ids equal the host "
+          f"engine ({len(want)} ids, host {host_s:.1f} s)")
+    if st.cut_windows < 1 or st.grown_windows < 1:
+        raise AssertionError("the ordinary encode did not cut and grow "
+                             "windows")
+    print("engine window choice (ordinary encode, wall MB/s, two runs "
+          "each): " + ", ".join(
+              f"{w >> 20} MB {' / '.join(f'{r:.1f}' for r in rs)}"
+              for w, rs in rates.items()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=16)
+    ap.add_argument("--engine-mb", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: the port's smoke run needs one card",
@@ -356,12 +755,23 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    rows = check_kernels(args.seed, "cuda")
-    launches = run_stream(args.seed, args.mb, "cuda")
+    rows = check_kernels(args.seed, "cuda") + check_engine_kernels(
+        args.seed, "cuda")
+    # each path runs with the counts set to 0 just before it; a kernel on
+    # both paths reports the sum of its launches in the two runs as
+    # "launches", and each path's count in "launches_by_path"
+    stream = run_stream(args.seed, args.mb, "cuda")
+    engine, engine_errs = run_engine(args.seed, args.engine_mb, "cuda")
     for r in rows:
-        r["launches"] = launches[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        by_path = dict(stream=stream.get(r["name"], 0),
+                       engine=engine.get(r["name"], 0))
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               engine_errs.get(r["name"], 0))
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

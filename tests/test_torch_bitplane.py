@@ -1,6 +1,7 @@
-"""Port of ops/bitplane (kernel K1's plain version and the host build of
-its derivation) held against the JAX package's Pallas kernel in
-interpret mode and against scanner_ref, bit for bit."""
+"""Port of ops/bitplane (kernel K1's plain versions, ASCII and codepoint,
+and the host build of its derivation) held against the JAX package's
+Pallas kernel in interpret mode, its char-level derivations and
+scanner_ref, bit for bit."""
 
 import ctypes
 
@@ -11,11 +12,13 @@ import torch
 import jax.numpy as jnp
 
 from tokendagger_tpu.ops import bitplane as JB
+from tokendagger_tpu.ops import pretokenize as JP
 from tokendagger_tpu.scanner_ref import piece_starts as ref_piece_starts
 from tokendagger_tpu.unicode_tables import get_two_level_tables
 from tokendagger_tpu_torch.ops import bitplane as TB
 from tokendagger_tpu_torch.scanner_ref import piece_starts as port_piece_starts
-from torch_port_util import ascii_text, stage
+from tokendagger_tpu_torch.unicode_tables import char_class_words
+from torch_port_util import ascii_text, multiscript_text, stage
 
 PROFILES = ["llama4", "nocontract", "cl100k", "gpt2"]
 N = 1 << 15
@@ -155,3 +158,99 @@ def test_wrapper_checks_inputs():
         TB.piece_starts_bits(by, nb.to(torch.int64))
     with pytest.raises(NotImplementedError):
         TB.piece_starts_bits(by, nb, profile="p50k")
+
+
+# ---------------------------------------------------------------------------
+# General text: codepoint windows (K1's codepoint entry)
+# ---------------------------------------------------------------------------
+
+NC = 1 << 13
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_class_words_ascii_equal_class_lut(profile):
+    words = char_class_words(profile)
+    assert words.shape == (0x110000,) and words.dtype == np.uint16
+    assert np.array_equal(words[:128].astype(np.uint32), TB.class_lut(profile))
+
+
+def _cp_windows(seed: int):
+    """(B, NC) int32 codepoint windows of multi-script text (fold letters
+    after apostrophes, U+3000, emoji, CJK, ...) with garbage codepoints
+    beyond each length, and the (B,) lengths."""
+    rng = np.random.default_rng(seed)
+    texts = [multiscript_text(rng, NC), multiscript_text(rng, NC - 333), "",
+             "\u3000", "x'\u017f I'\u212a 'ſ'ſ \u3000\u3000a Ωmega ǅ " * 40]
+    cp = rng.integers(0, 0x110000, (len(texts), NC)).astype(np.int32)
+    m = np.zeros(len(texts), np.int32)
+    for b, t in enumerate(texts):
+        c = np.array([ord(ch) for ch in t[:NC]], np.int32)
+        cp[b, : len(c)] = c
+        m[b] = len(c)
+    return cp, m
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_piece_starts_chars_equals_jax(two_level, profile):
+    cp, m = _cp_windows(5)
+    got = TB.piece_starts_chars(torch.from_numpy(cp), torch.from_numpy(m),
+                                profile=profile).numpy()
+    for b in range(cp.shape[0]):
+        # the engine's CPU form (char-per-element) sees a 0-padded window
+        padded = np.where(np.arange(NC) < m[b], cp[b], 0)
+        want = np.asarray(JP._piece_starts_j(
+            jnp.asarray(padded), jnp.int32(m[b]), *two_level,
+            contractions=profile != "nocontract", profile=profile))
+        assert np.array_equal(want, got[b]), (profile, b)
+        want_bits = np.asarray(JB.piece_starts_bits(
+            jnp.asarray(cp[b]), jnp.int32(m[b]), *two_level,
+            profile=profile, ascii_fast=False))
+        assert np.array_equal(want_bits, got[b]), (profile, b)
+    # one window in, one window out
+    one = TB.piece_starts_chars(torch.from_numpy(cp[0]), int(m[0]),
+                                profile=profile)
+    assert np.array_equal(one.numpy(), got[0])
+
+
+def _host_kernel_cp(cp, m, profile):
+    from tokendagger_tpu_torch._build import host_library
+
+    lib = host_library("piece_starts_host")
+    vp = ctypes.c_void_p
+    lib.td_piece_starts_cp_host.argtypes = [vp, vp, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int, vp, vp]
+    lib.td_piece_starts_cp_host.restype = ctypes.c_int
+    B, n = cp.shape
+    out = np.zeros((B, n // 32), np.uint32)
+    table = char_class_words(profile)
+    passes = lib.td_piece_starts_cp_host(
+        cp.ctypes.data, m.ctypes.data, B, n, TB._PROFILE_ID[profile],
+        table.ctypes.data, out.ctypes.data)
+    return out.view(np.int32), passes
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_kernel_derivation_host_build_codepoints_equals_plain(profile):
+    """The codepoint entry of the derivation the CUDA kernel runs, built
+    for the host, equals the plain version (including codepoints outside
+    [0, 0x10FFFF], which have no class)."""
+    cp, m = _cp_windows(6)
+    cp[0, 7] = 0x7FFFFFFF
+    cp[0, 11] = -5
+    got, passes = _host_kernel_cp(cp, m, profile)
+    assert passes > 0, "kernel scratch planes exhausted"
+    want = TB.piece_starts_chars(torch.from_numpy(cp), torch.from_numpy(m),
+                                 profile=profile, packed_out=True)
+    assert np.array_equal(want.numpy(), got)
+
+
+def test_piece_starts_chars_checks_inputs():
+    cp = torch.zeros((1, 1024), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        TB.piece_starts_chars(cp.to(torch.int64), 3)
+    with pytest.raises(ValueError):
+        TB.piece_starts_chars(torch.zeros((1, 1000), dtype=torch.int32), 3)
+    with pytest.raises(ValueError):
+        TB.piece_starts_chars(cp, torch.tensor([1, 2], dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        TB.piece_starts_chars(cp, 3, profile="p50k")

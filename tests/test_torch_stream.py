@@ -84,7 +84,11 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax():
     files = sorted((REPO / "tokendagger_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    names = {f.name for f in files}
+    for new in ("engine.py", "wrapper.py", "streaming.py", "pretokenize.py",
+                "decode.py"):
+        assert new in names, new
+    assert len(files) > 15
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
@@ -94,7 +98,10 @@ def test_port_imports_no_jax():
 def test_port_import_loads_no_jax():
     code = ("import sys, tokendagger_tpu_torch, "
             "tokendagger_tpu_torch.residentstream, "
-            "tokendagger_tpu_torch.convert; "
+            "tokendagger_tpu_torch.convert, tokendagger_tpu_torch.engine, "
+            "tokendagger_tpu_torch.wrapper, tokendagger_tpu_torch.streaming, "
+            "tokendagger_tpu_torch.ops.pretokenize, "
+            "tokendagger_tpu_torch.ops.decode; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tokendagger_tpu', 'regex')]; "
             "print(bad); sys.exit(1 if bad else 0)")

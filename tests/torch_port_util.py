@@ -1,6 +1,7 @@
 """Shared inputs for the PyTorch port's tests (tests/test_torch_*.py):
 seeded ASCII text built to fire every class rule of the piece-start
-derivation, staged into fixed-shape byte windows with garbage tails."""
+derivation, seeded multi-script text, and both staged into fixed-shape
+byte windows with garbage tails."""
 
 import numpy as np
 
@@ -55,12 +56,13 @@ def prose_text(rng: np.random.Generator, n: int) -> str:
 
 
 def stage(texts, n: int, rng: np.random.Generator):
-    """(B, n) uint8 windows holding ``texts`` then random garbage bytes
-    (including values >= 128), and their (B,) int32 lengths."""
+    """(B, n) uint8 windows holding ``texts`` (UTF-8, cut at n bytes) then
+    random garbage bytes (including values >= 128), and their (B,) int32
+    lengths."""
     by = rng.integers(0, 256, (len(texts), n)).astype(np.uint8)
     nb = np.zeros(len(texts), np.int32)
     for b, t in enumerate(texts):
-        raw = t.encode("ascii")[:n]
+        raw = t.encode("utf-8")[:n]
         by[b, : len(raw)] = np.frombuffer(raw, np.uint8)
         nb[b] = len(raw)
     return by, nb
@@ -92,3 +94,49 @@ def collision_vocab(seed: int = 0, n_total: int = 3000):
     for tok in crowd + rest[: n_total - 256 - len(crowd)]:
         ranks[tok] = len(ranks)
     return ranks, crowd
+
+
+# Multi-script pieces: Latin accents, Greek, Cyrillic, CJK, Arabic, emoji
+# (with ZWJ and skin tone), U+3000, combining marks, the fold letters
+# U+017F (long s) and U+212A (Kelvin) after apostrophes, and ASCII.
+_SCRIPTS = [
+    ["café", "naïve", "Übermäßig", "schön", "Ça", "résumé", "ÉCOLE", "ǅemal"],
+    ["Γειά", "σου", "Κόσμε", "ΑΘΗΝΑ", "λόγος"],
+    ["Здравствуйте", "мир", "МОСКВА", "ёлка"],
+    ["日本語", "中文文本", "テキスト", "한국어", "の"],
+    ["مرحبا", "שלום", "עולם"],
+    ["🙂", "👩\u200d👩\u200d👧", "👍🏽", "🇺🇸", "🎉🎉"],
+    ["\u3000", "\u3000\u3000", "\u00a0", "\u2028", " \u3000x"],
+    ["e\u0301\u0302", "à", "\u0300x", "a\u0308"],
+    ["'\u017f", "'\u212a", "I'\u017fT", "x'\u017f\u017f", "'LL", "'ſ'ſ"],
+    ["12", "٣٤", "²³", "Ⅻ", "3.14"],
+]
+
+
+def multiscript_text(rng: np.random.Generator, n: int) -> str:
+    """About n chars of seeded text that mixes scripts with the ASCII
+    pools above."""
+    parts, size = [], 0
+    while size < n:
+        if rng.random() < 0.4:
+            pool = _POOLS[int(rng.integers(len(_POOLS)))]
+        else:
+            pool = _SCRIPTS[int(rng.integers(len(_SCRIPTS)))]
+        s = pool[int(rng.integers(len(pool)))]
+        if rng.random() < 0.3:
+            s = " " + s
+        parts.append(s)
+        size += len(s)
+    return "".join(parts)[:n]
+
+
+def invalid_utf8(rng: np.random.Generator, n: int) -> bytes:
+    """n bytes of valid multi-byte text laced with stray continuations,
+    0xF5-0xFF leads and truncated sequences, ending in a truncated 4-byte
+    sequence."""
+    good = multiscript_text(rng, n).encode("utf-8")
+    out = bytearray(good[: n - 3])
+    for i in rng.integers(0, len(out), max(1, len(out) // 50)):
+        out[int(i)] = int(rng.choice([0x80, 0xBF, 0xC3, 0xE2, 0xF0, 0xF5,
+                                      0xF8, 0xFE, 0xFF]))
+    return bytes(out) + b"\xf0\x9f\x99"

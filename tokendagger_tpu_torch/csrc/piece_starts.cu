@@ -1,9 +1,16 @@
-// K1: piece starts of ASCII windows, bytes -> plane-major start words.
+// K1: piece starts, bytes or codepoints -> plane-major start words.
 //
 // Replaces the Pallas kernel of tokendagger_tpu/ops/bitplane.py:1152
-// (piece_starts_bits_pallas, kernel `kern` at :1137-1159, ascii_fast=True,
-// packed_out=True) together with the XLA mask construction in front of it
-// (_char_masks_planes, :462-545), which is folded in here.
+// (piece_starts_bits_pallas, kernel `kern` at :1137-1159, packed_out=True)
+// together with the XLA mask construction in front of it, which is folded
+// in here. Two entries share the derivation (starts_derive.cuh):
+//   * td_piece_starts: ASCII windows of bytes, classes from a 128-entry
+//     table (ascii_fast=True; _char_masks_planes, :462-545);
+//   * td_piece_starts_cp: windows of codepoints (general text), classes
+//     from the per-codepoint table of unicode_tables.char_class_words
+//     (ascii_fast=False; _char_masks, :548-637). The JAX engine runs this
+//     form as XLA (bitplane.py:1011-1045); here it is the same kernel.
+//     The 2.2 MB table stays resident in the 50 MB L2.
 //
 // What bounds it on the H100: not bytes (a window reads 1 MB and writes
 // 128 KB) but the ~95 dependent scans of the derivation, each a pass over
@@ -121,6 +128,23 @@ struct CountOps {
   TD_FN void scan(uint32_t*, const F&, bool) { ++passes; }
 };
 
+// char-major -> plane-major: for 32 consecutive output words 32q..32q+31,
+// lane j holds the char-major word of plane j; ballot t gathers bit t.
+__device__ void store_plane_major(const uint32_t* S, int C, uint32_t* ob) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = C / 32;
+  for (int q = warp; q < groups; q += blockDim.x >> 5) {
+    const uint32_t x = S[lane * groups + q];
+    uint32_t mine = 0u;
+#pragma unroll
+    for (int t = 0; t < 32; ++t) {
+      const uint32_t bal = __ballot_sync(0xFFFFFFFFu, (x >> t) & 1u);
+      if (lane == t) mine = bal;
+    }
+    ob[32 * q + lane] = mine;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 piece_starts_kernel(const uint8_t* data, const int32_t* nbytes, int N,
                     int profile, Lut lut, uint32_t* scratch, uint32_t* out) {
@@ -135,21 +159,22 @@ piece_starts_kernel(const uint8_t* data, const int32_t* nbytes, int N,
              s_wz, s_wo, s_state};
   const uint32_t* S = td::derive_window(o, data + (size_t)b * N, nbytes[b],
                                         s_lut, profile, N);
-  // char-major -> plane-major: for 32 consecutive output words 32q..32q+31,
-  // lane j holds the char-major word of plane j; ballot t gathers bit t.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int groups = C / 32;
-  uint32_t* ob = out + (size_t)b * C;
-  for (int q = warp; q < groups; q += blockDim.x >> 5) {
-    const uint32_t x = S[lane * groups + q];
-    uint32_t mine = 0u;
-#pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      const uint32_t bal = __ballot_sync(0xFFFFFFFFu, (x >> t) & 1u);
-      if (lane == t) mine = bal;
-    }
-    ob[32 * q + lane] = mine;
-  }
+  store_plane_major(S, C, out + (size_t)b * C);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+piece_starts_cp_kernel(const int32_t* cp, const int32_t* nchars, int N,
+                       int profile, const uint16_t* table, uint32_t* scratch,
+                       uint32_t* out) {
+  __shared__ uint32_t s_wz[32], s_wo[32];
+  __shared__ uint32_t s_state[2 * 33];
+  const int b = blockIdx.x;
+  const int C = N / 32;
+  BlockOps o{scratch + (size_t)b * td::STARTS_PLANES * C, C, 0,
+             s_wz, s_wo, s_state};
+  const uint32_t* S = td::derive_window_cp(o, cp + (size_t)b * N, nchars[b],
+                                           table, profile, N);
+  store_plane_major(S, C, out + (size_t)b * C);
 }
 
 }  // namespace
@@ -179,6 +204,18 @@ int td_piece_starts(const void* data, const void* nbytes, int B, int N,
   piece_starts_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)nbytes, N, profile, l,
       (uint32_t*)scratch, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// cp (B, N) int32 codepoints, nchars (B,) int32 valid lengths, table the
+// (0x110000,) uint16 class words on the device, scratch and out as for
+// td_piece_starts. N must be a multiple of 1024.
+int td_piece_starts_cp(const void* cp, const void* nchars, int B, int N,
+                       int profile, const void* table, void* scratch,
+                       void* out, void* stream) {
+  piece_starts_cp_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cp, (const int32_t*)nchars, N, profile,
+      (const uint16_t*)table, (uint32_t*)scratch, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -46,6 +46,19 @@ struct SeqOps {
   }
 };
 
+
+void store_plane_major(const uint32_t* S, int C, uint32_t* ob) {
+  const int groups = C / 32;
+  for (int wp = 0; wp < C; ++wp) {
+    uint32_t v = 0u;
+    for (int j = 0; j < 32; ++j) {
+      const uint32_t x = S[j * groups + (wp >> 5)];
+      v |= ((x >> (wp & 31)) & 1u) << j;
+    }
+    ob[wp] = v;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -64,15 +77,26 @@ int td_piece_starts_host(const uint8_t* data, const int32_t* nbytes, int B,
     const uint32_t* S =
         td::derive_window(o, data + (size_t)b * N, nbytes[b], lut, profile, N);
     if (o.next > td::STARTS_PLANES) return -1;
-    const int groups = C / 32;
-    for (int wp = 0; wp < C; ++wp) {
-      uint32_t v = 0u;
-      for (int j = 0; j < 32; ++j) {
-        const uint32_t x = S[j * groups + (wp >> 5)];
-        v |= ((x >> (wp & 31)) & 1u) << j;
-      }
-      out[(size_t)b * C + wp] = v;
-    }
+    store_plane_major(S, C, out + (size_t)b * C);
+    passes = o.passes;
+  }
+  return passes;
+}
+
+// Same contract as td_piece_starts_cp (piece_starts.cu) on host memory;
+// returns as td_piece_starts_host.
+int td_piece_starts_cp_host(const int32_t* cp, const int32_t* nchars, int B,
+                            int N, int profile, const uint16_t* table,
+                            uint32_t* out) {
+  const int C = N / 32;
+  std::vector<uint32_t> scratch((size_t)2 * td::STARTS_PLANES * C);
+  int passes = 0;
+  for (int b = 0; b < B; ++b) {
+    SeqOps o{scratch.data(), C, 0, 0};
+    const uint32_t* S = td::derive_window_cp(o, cp + (size_t)b * N,
+                                             nchars[b], table, profile, N);
+    if (o.next > td::STARTS_PLANES) return -1;
+    store_plane_major(S, C, out + (size_t)b * C);
     passes = o.passes;
   }
   return passes;

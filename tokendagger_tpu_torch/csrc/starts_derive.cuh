@@ -41,7 +41,8 @@
 
 namespace td {
 
-// bits of the per-byte class table (built by ops/bitplane.py)
+// bits of the class words: the per-byte table (ops/bitplane.class_lut)
+// and the per-codepoint table (unicode_tables.char_class_words)
 enum : int {
   B_WS = 0, B_RN, B_LET, B_NUM, B_UC, B_LC, B_SP, B_APO, B_RNSL,
   B_G1,   // fold letters s t m d (gpt2: literal s d m t)
@@ -183,6 +184,31 @@ TD_FN Masks build_masks(O& o, const uint8_t* data, int m,
         for (int i = 0; i < N_LUT_BITS; ++i)
           acc[i] |= ((cls >> i) & 1u) << j;
       }
+    }
+    for (int i = 0; i < N_LUT_BITS; ++i) M.bit[i][w] = acc[i];
+    M.valid[w] = valid_word(w, m);
+  });
+  return M;
+}
+
+// Mask construction for general text (_char_masks): chars at or beyond m
+// belong to no class; a valid char's classes come from the per-codepoint
+// table, table[cp[i]], and a codepoint outside [0, 0x10FFFF] has none.
+template <class O>
+TD_FN Masks build_masks_cp(O& o, const int32_t* cp, int m,
+                           const uint16_t* table) {
+  Masks M;
+  M.valid = o.plane();
+  for (int i = 0; i < N_LUT_BITS; ++i) M.bit[i] = o.plane();
+  o.each([&](int w) {
+    uint32_t acc[N_LUT_BITS];
+    for (int i = 0; i < N_LUT_BITS; ++i) acc[i] = 0u;
+    const int32_t* c = cp + 32 * (size_t)w;
+    for (int j = 0; j < 32 && 32 * w + j < m; ++j) {
+      const uint32_t v = (uint32_t)c[j];
+      const uint32_t cls = v < 0x110000u ? (uint32_t)table[v] : 0u;
+      for (int i = 0; i < N_LUT_BITS; ++i)
+        acc[i] |= ((cls >> i) & 1u) << j;
     }
     for (int i = 0; i < N_LUT_BITS; ++i) M.bit[i][w] = acc[i];
     M.valid[w] = valid_word(w, m);
@@ -625,11 +651,9 @@ TD_FN void derive_cl100k(O& o, const Masks& M, int n_total, uint32_t* out) {
   });
 }
 
-// Whole window: bytes -> char-major start words (returned plane).
+// Class planes -> char-major start words (returned plane).
 template <class O>
-TD_FN uint32_t* derive_window(O& o, const uint8_t* data, int m,
-                              const uint32_t* lut, int profile, int n) {
-  const Masks M = build_masks(o, data, m, lut);
+TD_FN uint32_t* derive_masks(O& o, const Masks& M, int profile, int n) {
   uint32_t* out = o.plane();
   if (profile == P_GPT2) {
     derive_gpt2(o, M, out);
@@ -639,6 +663,20 @@ TD_FN uint32_t* derive_window(O& o, const uint8_t* data, int m,
     derive_o200k(o, M, profile == P_LLAMA4, n, out);
   }
   return out;
+}
+
+// Whole ASCII window: bytes -> char-major start words.
+template <class O>
+TD_FN uint32_t* derive_window(O& o, const uint8_t* data, int m,
+                              const uint32_t* lut, int profile, int n) {
+  return derive_masks(o, build_masks(o, data, m, lut), profile, n);
+}
+
+// Whole window of codepoints (general text) -> char-major start words.
+template <class O>
+TD_FN uint32_t* derive_window_cp(O& o, const int32_t* cp, int m,
+                                 const uint16_t* table, int profile, int n) {
+  return derive_masks(o, build_masks_cp(o, cp, m, table), profile, n);
 }
 
 }  // namespace td

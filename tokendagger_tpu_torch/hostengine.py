@@ -3,21 +3,24 @@
 This is the framework's *oracle* implementation: byte-for-byte identical
 token ids to tiktoken / the reference C++ engine. It is used
 
-* as the correctness reference for the device path, and
-* by the window pipeline for the windows it cannot take (non-ASCII,
-  capacity overflow) and for splicing pieces its probe missed.
+* as the correctness reference for the device path,
+* by the public API's host backend, and
+* by the window pipelines for the windows they cannot take (capacity
+  overflow, and non-ASCII windows in ``ResidentStream``) and for splicing
+  pieces their probe missed.
 
 Semantics mirrored from the reference C++ engine (behavioral spec only):
 * regex pretokenization: src/tiktoken/tiktoken.cpp:70-128
 * BPE merge loop (leftmost-min-rank, look-3-parts-ahead rank refresh):
   src/tiktoken/tiktoken.cpp:282-378
 * whole-piece direct-lookup fast path: src/tiktoken/tiktoken.cpp:210-215
-
-This is the ordinary-text part of the JAX package's engine; the
-special-token and decode methods come with the public API.
+* special-token scan with per-token position cache:
+  src/tiktoken/tiktoken.cpp:130-154,169-234
 """
 
 from __future__ import annotations
+
+from typing import AbstractSet, Iterable, Sequence
 
 MAX_RANK = 0x7FFFFFFF
 
@@ -89,6 +92,24 @@ class HostEngine:
         self.pattern = pattern
         self.ranks = dict(mergeable_ranks)
         self.special_tokens = dict(special_tokens)
+        self.decoder: dict[int, bytes] = {r: b for b, r in self.ranks.items()}
+        self.special_decoder: dict[int, bytes] = {
+            r: s.encode("utf-8") for s, r in self.special_tokens.items()
+        }
+        # Specials sorted longest-first so that, when two allowed specials
+        # match at the same position, the longest wins deterministically.
+        self._specials_by_len = sorted(
+            self.special_tokens, key=len, reverse=True
+        )
+        # Single-pass scan support: distinct leading bigrams and distinct
+        # lengths of the special vocabulary.
+        self._special_prefixes = {t[:2] for t in self.special_tokens}
+        self._special_lengths = sorted(
+            {len(t) for t in self.special_tokens}, reverse=True
+        )
+        # canonical allow-all set: callers passing this exact object skip
+        # the per-call O(|specials|) membership validation
+        self.all_specials: frozenset[str] = frozenset(self.special_tokens)
         # Supported profiles split via the class-run scanner over the
         # tiktoken-calibrated class table (see split_spans); the regex
         # engine serves generic patterns only, so the `regex` module is
@@ -144,3 +165,177 @@ class HostEngine:
             else:
                 out.extend(byte_pair_encode(piece, self.ranks))
         return out
+
+    # ------------------------------------------------------------------
+    # Special tokens
+    # ------------------------------------------------------------------
+    def _find_next_special(
+        self, text: str, start: int, allowed: Iterable[str], cache: dict[str, int]
+    ) -> tuple[int, str | None]:
+        """Earliest occurrence of any allowed special at/after ``start``.
+
+        Positions are cached per token so each special is searched at most
+        once per region, mirroring tiktoken.cpp:130-154. Ties at the same
+        position resolve to the longest token.
+        """
+        ABSENT = -2  # token known absent for the rest of the text
+        best_pos = -1
+        best_tok: str | None = None
+        for tok in allowed:
+            pos = cache.get(tok)
+            if pos == ABSENT:
+                continue
+            if pos is None or pos < start:
+                pos = text.find(tok, start)
+                cache[tok] = pos if pos != -1 else ABSENT
+                if pos == -1:
+                    continue
+            if (
+                best_pos == -1
+                or pos < best_pos
+                or (pos == best_pos and len(tok) > len(best_tok or ""))
+            ):
+                best_pos = pos
+                best_tok = tok
+        return best_pos, best_tok
+
+    def encode(
+        self, text: str, allowed_special: AbstractSet[str]
+    ) -> tuple[list[int], int]:
+        """Encode with special-token handling.
+
+        Returns ``(tokens, last_piece_token_len)`` like the reference
+        (tiktoken.cpp:169-234). Raises ``KeyError`` if ``allowed_special``
+        contains an unknown token (reference throws TiktokenError,
+        tiktoken.cpp:177-182)."""
+        for tok in allowed_special:
+            if tok not in self.special_tokens:
+                raise KeyError(f"Unknown special token: {tok!r}")
+
+        # Longest-first ordering for deterministic same-position ties.
+        allowed = [t for t in self._specials_by_len if t in allowed_special]
+
+        out: list[int] = []
+        last_piece_token_len = 0
+        cache: dict[str, int] = {}
+        start = 0
+        n = len(text)
+        while start <= n:
+            pos, tok = self._find_next_special(text, start, allowed, cache)
+            end = pos if pos != -1 else n
+            if start < end:
+                segment = text[start:end]
+                last_piece_token_len = 0
+                for a, b in self.split_spans(segment):
+                    piece = segment[a:b].encode("utf-8")
+                    # whole-piece direct lookup fast path (tiktoken.cpp:210-215)
+                    r = self.ranks.get(piece)
+                    if r is not None:
+                        out.append(r)
+                        last_piece_token_len = 1
+                    else:
+                        ids = byte_pair_encode(piece, self.ranks)
+                        out.extend(ids)
+                        last_piece_token_len = len(ids)
+            if tok is None:
+                break
+            out.append(self.special_tokens[tok])
+            last_piece_token_len = 0
+            start = end + len(tok)
+            if start > n:
+                break
+        return out, last_piece_token_len
+
+    def encode_with_special_tokens(self, text: str) -> list[int]:
+        tokens, _ = self.encode(text, set(self.special_tokens))
+        return tokens
+
+    def find_all_specials(
+        self, text: str, allowed: AbstractSet[str]
+    ) -> list[tuple[int, str]]:
+        """All non-overlapping allowed-special occurrences in document
+        order (leftmost match wins; same-position ties go to the longest
+        token) — the reference's cached per-token find loop semantics
+        (tiktoken.cpp:130-154), computed in a single pass. Tie-break
+        caveat: a same-position tie requires one allowed special to be a
+        strict prefix of another — absent from every real vocabulary.
+        There, this scan picks
+        the LONGEST deterministically, while tiktoken's own pick is the
+        first alternative of a regex built from HashMap iteration order
+        (implementation-defined), and the reference's is emhash set
+        order; for prefix-tie-free special sets all three agree exactly.
+        Mechanics:
+        one ``str.find`` sweep per *distinct leading bigram* of the
+        allowed set (typically just "<|") yields candidate positions, and
+        each candidate is resolved with one hash lookup per distinct
+        special length. O(text + candidates) instead of
+        O(|allowed| * text)."""
+        positions: list[int] = []
+        prefixes = (
+            self._special_prefixes
+            if len(allowed) == len(self.special_tokens)
+            else {t[:2] for t in allowed}
+        )
+        for pre in prefixes:
+            p = text.find(pre)
+            while p != -1:
+                positions.append(p)
+                p = text.find(pre, p + 1)
+        if not positions:
+            return []
+        positions.sort()
+        lengths = (
+            self._special_lengths
+            if len(allowed) == len(self.special_tokens)
+            else sorted({len(t) for t in allowed}, reverse=True)
+        )
+        if not isinstance(allowed, (set, frozenset)):
+            allowed = set(allowed)
+        out: list[tuple[int, str]] = []
+        last_end = 0
+        prev = -1
+        for p in positions:
+            if p < last_end or p == prev:
+                continue
+            prev = p
+            for L in lengths:
+                cand = text[p : p + L]
+                if len(cand) == L and cand in allowed:
+                    out.append((p, cand))
+                    last_end = p + L
+                    break
+        return out
+
+    def split_specials(self, text: str, allowed: AbstractSet[str]):
+        """Yield (segment_text, None) / ("", special_id) in document order,
+        matching the cached-position scan semantics of the reference
+        (tiktoken.cpp:130-154) via the single-pass scanner above. Raises
+        KeyError on unknown allowed token."""
+        if allowed is not self.all_specials:
+            for tok in allowed:
+                if tok not in self.special_tokens:
+                    raise KeyError(f"Unknown special token: {tok!r}")
+        start = 0
+        for pos, tok in self.find_all_specials(text, allowed):
+            if start < pos:
+                yield text[start:pos], None
+            yield "", self.special_tokens[tok]
+            start = pos + len(tok)
+        if start < len(text):
+            yield text[start:], None
+
+    # ------------------------------------------------------------------
+    # Decoding
+    # ------------------------------------------------------------------
+    def decode_bytes(self, tokens: Sequence[int]) -> bytes:
+        """Concatenate per-id byte strings; raise on unknown ids
+        (reference: tiktoken.cpp:236-255)."""
+        chunks: list[bytes] = []
+        for t in tokens:
+            b = self.decoder.get(t)
+            if b is None:
+                b = self.special_decoder.get(t)
+            if b is None:
+                raise KeyError(f"Unknown token id: {t}")
+            chunks.append(b)
+        return b"".join(chunks)

@@ -1,14 +1,22 @@
-r"""Piece starts of ASCII windows: bit-plane derivation and kernel K1.
+r"""Piece starts: bit-plane derivation and kernel K1.
 
-``piece_starts_bits`` turns a batch of raw byte windows into piece-start
-flags for a supported pattern profile (llama4/o200k, nocontract/Tekken,
-cl100k, gpt2). It is the counterpart of the JAX package's
-``ops/bitplane.piece_starts_bits_pallas(..., ascii_fast=True)``:
+For a supported pattern profile (llama4/o200k, nocontract/Tekken, cl100k,
+gpt2) two entry points turn windows into piece-start flags:
 
-* on CUDA tensors it launches kernel K1 (``csrc/piece_starts.cu``),
-  which builds the class planes from the bytes and runs the whole
-  derivation in one launch;
-* on CPU tensors it runs the plain version below, a line-for-line port of
+* ``piece_starts_bits``: ASCII windows of raw bytes, the counterpart of
+  the JAX package's ``ops/bitplane.piece_starts_bits_pallas(...,
+  ascii_fast=True)``;
+* ``piece_starts_chars``: windows of codepoints (any UTF-8 text, decoded
+  by ``ops/pretokenize.utf8_decode``), with the contract of the JAX
+  ``pretokenize.compute_starts`` and ``bitplane.piece_starts_bits(...,
+  ascii_fast=False)``. Classes come from the per-codepoint table
+  ``unicode_tables.char_class_words``.
+
+Each of them:
+
+* on CUDA tensors launches kernel K1 (``csrc/piece_starts.cu``), which
+  builds the class planes and runs the whole derivation in one launch;
+* on CPU tensors runs the plain version below, a line-for-line port of
   the reference's word-space derivation.
 
 Plain version layout (as the reference): plane-major — word w's bit j is
@@ -32,7 +40,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..unicode_tables import LC, NUM, RN, UC, WS
+from ..unicode_tables import (
+    CLASS_WORD_BITS, LC, N_CP, NUM, RN, UC, WS, char_class_words,
+)
 from .join import to_i32
 
 _ALL1 = -1  # 0xFFFFFFFF as an int32 word
@@ -643,9 +653,6 @@ def _derive_cl100k_words(P: dict, *, n_total: int) -> torch.Tensor:
 # ===========================================================================
 
 _PROFILE_ID = {"llama4": 0, "nocontract": 1, "cl100k": 2, "gpt2": 3}
-# bit order of the kernel's per-byte class table (csrc/starts_derive.cuh)
-_LUT_BITS = ("ws", "rn", "let", "num", "uc", "lc", "sp", "apo", "rnsl",
-             "g1", "grv", "ge", "gl")
 
 
 @lru_cache(maxsize=4)
@@ -665,7 +672,7 @@ def class_lut(profile: str) -> np.ndarray:
         sets["ge"] = fold[_E]
         sets["gl"] = fold[_L]
     lut = np.zeros(128, np.uint32)
-    for bit, name in enumerate(_LUT_BITS):
+    for bit, name in enumerate(CLASS_WORD_BITS):
         for b in sets.get(name, ()):
             lut[b] |= 1 << bit
     # the kernel gives bytes at or beyond nbytes no class; the reference
@@ -694,6 +701,8 @@ def _k1_library():
     lib.td_piece_starts.argtypes = [
         vp, vp, i, i, i, ctypes.POINTER(ctypes.c_uint32), vp, vp, vp]
     lib.td_piece_starts.restype = i
+    lib.td_piece_starts_cp.argtypes = [vp, vp, i, i, i, vp, vp, vp, vp]
+    lib.td_piece_starts_cp.restype = i
     lib.td_piece_starts_scratch_words.argtypes = [i]
     lib.td_piece_starts_scratch_words.restype = ctypes.c_longlong
     lib.td_piece_starts_passes.argtypes = [i, i]
@@ -756,3 +765,104 @@ def piece_starts_bits(by: torch.Tensor, nbytes: torch.Tensor, *,
 
 
 piece_starts_bits.launches = 0
+
+
+# ===========================================================================
+# General text: codepoints -> char-level starts (K1's codepoint entry)
+# ===========================================================================
+
+
+@lru_cache(maxsize=None)
+def _class_words(profile: str, device: str) -> torch.Tensor:
+    """``char_class_words(profile)`` on ``device``: int32 on the CPU (for
+    the plain version), int16 holding the uint16 bits on a card."""
+    w = char_class_words(profile)
+    if device == "cpu":
+        return torch.from_numpy(w.astype(np.int32))
+    return torch.from_numpy(w.view(np.int16).copy()).to(device)
+
+
+def _char_masks_words(cp: torch.Tensor, m: torch.Tensor, profile: str):
+    """Packed (B, N/32) class words of codepoint windows: every class bit
+    of ``char_class_words`` at the chars below ``m`` (a codepoint outside
+    [0, 0x10FFFF] has none), and the contraction predicates from the
+    fold-letter groups of the next one and two chars."""
+    table = _class_words(profile, "cpu").to(cp.device)
+    n = cp.shape[-1]
+    valid = torch.arange(n, device=cp.device) < m.to(torch.int64)[:, None]
+    known = valid & (cp >= 0) & (cp <= N_CP - 1)
+    cls = torch.where(known, table[cp.clamp(0, N_CP - 1).to(torch.int64)], 0)
+    P = {name: pack_mask(((cls >> i) & 1).to(torch.bool))
+         for i, name in enumerate(CLASS_WORD_BITS)}
+    P["valid"] = pack_mask(valid)
+    P["fold1"] = nxtk(P.pop("g1"), 1)
+    grv, ge, gl = P.pop("grv"), P.pop("ge"), P.pop("gl")
+    P["fold2"] = (nxtk(grv, 1) & nxtk(ge, 2)) | (nxtk(gl, 1) & nxtk(gl, 2))
+    return P
+
+
+def piece_starts_chars_plain(cp: torch.Tensor, m: torch.Tensor, *,
+                             profile: str = "llama4") -> torch.Tensor:
+    """Plain torch version of K1's codepoint entry: (B, N) int32
+    codepoints -> (B, N/32) int32 plane-major start words."""
+    contractions = profile != "nocontract"
+    return derive_starts_words(_char_masks_words(cp, m, profile),
+                               contractions=contractions,
+                               n_total=cp.shape[-1], profile=profile)
+
+
+def _launch_k1_cp(cp: torch.Tensor, m: torch.Tensor, profile: str):
+    lib = _k1_library()
+    B, N = cp.shape
+    dev = cp.device
+    table = _class_words(profile, str(dev))
+    words = lib.td_piece_starts_scratch_words(N)
+    scratch = torch.empty(B * words, dtype=torch.int32, device=dev)
+    out = torch.empty((B, N // 32), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.td_piece_starts_cp(
+            cp.data_ptr(), m.data_ptr(), B, N, _PROFILE_ID[profile],
+            table.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
+    if rc:
+        raise RuntimeError(
+            f"piece_starts_cp kernel launch failed: CUDA error {rc}")
+    piece_starts_chars.launches += 1
+    return out
+
+
+def piece_starts_chars(cp: torch.Tensor, m, *, profile: str = "llama4",
+                       packed_out: bool = False) -> torch.Tensor:
+    """Char-level piece-start flags of codepoint windows (any text).
+
+    ``cp`` (N,) or (B, N) int32 codepoints (anything at or beyond ``m``),
+    ``m`` a scalar or (B,) int32 char counts on the same device; N a
+    multiple of 1024. Returns bool flags of ``cp``'s shape, or with
+    ``packed_out`` the (B, N/32) int32 plane-major words. CUDA tensors
+    run kernel K1 (codepoint entry); CPU tensors the plain version."""
+    if profile not in _PROFILE_ID:
+        raise NotImplementedError(profile)
+    one = cp.dim() == 1
+    c2 = cp[None] if one else cp
+    if c2.dim() != 2 or c2.dtype != torch.int32 or not c2.is_contiguous():
+        raise ValueError("cp must be a contiguous (N,) or (B, N) int32 tensor")
+    B, N = c2.shape
+    if N % 1024:
+        raise ValueError(f"window length {N} is not a multiple of 1024")
+    m2 = torch.as_tensor(m, device=cp.device).to(torch.int32).reshape(-1)
+    if m2.shape != (B,):
+        raise ValueError(f"m must hold {B} char counts")
+    m2 = m2.contiguous()
+    if cp.is_cuda:
+        words = _launch_k1_cp(c2, m2, profile)
+    elif cp.device.type == "cpu":
+        words = piece_starts_chars_plain(c2, m2, profile=profile)
+    else:
+        raise ValueError(f"unsupported device {cp.device}")
+    if packed_out:
+        return words
+    flags = unpack_mask(words)
+    return flags[0] if one else flags
+
+
+piece_starts_chars.launches = 0

@@ -1,4 +1,4 @@
-"""Whole-piece vocab hash table (``vhash8``).
+"""Whole-piece vocab hash table (``vhash8``) and the decode tables.
 
 One bucket row per hash value holds 8 slots of [k0, k1, k2, k3, len,
 rank] (48 int32 = 192 B), slot-major: [k0 x8][k1 x8]...[rank x8]. The
@@ -91,3 +91,25 @@ def vocab_keys(ranks: dict[bytes, int]):
 def build_vhash8(ranks: dict[bytes, int]):
     """(rows (nb, 48) int32, mask, dropped) for a mergeable-ranks dict."""
     return _build_vocab_hash8(*vocab_keys(ranks))
+
+
+def build_decode_tables(ranks: dict[bytes, int], specials: dict[str, int]):
+    """rank -> bytes tables for decode, ordinary and special ids in one
+    address space: (offsets (V,) int64, lengths (V,) int32 with -1 for an
+    unknown id, blob uint8, n_vocab = V), V = the largest id + 1.
+    Identical to the decode fields of the JAX package's ``build_tables``."""
+    max_id = max(max(ranks.values()), max(specials.values(), default=0))
+    n_ids = max_id + 1
+    lengths = np.full(n_ids, -1, dtype=np.int32)
+    offsets = np.zeros(n_ids, dtype=np.int64)
+    parts: list[bytes] = []
+    off = 0
+    items = list(ranks.items()) + [(s.encode("utf-8"), r)
+                                   for s, r in specials.items()]
+    for tb, rank in items:
+        offsets[rank] = off
+        lengths[rank] = len(tb)
+        parts.append(tb)
+        off += len(tb)
+    blob = np.frombuffer(b"".join(parts), dtype=np.uint8).copy()
+    return offsets, lengths, blob, n_ids

@@ -126,3 +126,17 @@ def load_hf_special_tokens(path: str | Path) -> dict[str, int]:
         out[entry["content"]] = int(id_str)
     return out
 
+
+def vocab_list_to_ranks(vocab: list[dict]) -> dict[bytes, int]:
+    """Convert the list-of-dicts vocab format (``{"rank": int,
+    "token_bytes": list[int] | str, "token_string": str}``) to mergeable
+    ranks."""
+    ranks: dict[bytes, int] = {}
+    for item in vocab:
+        tb = item["token_bytes"]
+        if isinstance(tb, list):
+            tb = bytes(tb)
+        elif isinstance(tb, str):
+            tb = tb.encode("utf-8")
+        ranks[tb] = item["rank"]
+    return ranks
