@@ -34,13 +34,27 @@
    and with 4 MB windows of the same text plus a 5 MB digit run (one
    class run, so windows grow to 16 MB), whose ids must equal the host
    engine's.
-6. Prints a "kernels" JSON line, then the card's name and power limit, and
+6. Drives run_resident, the batched general pipeline, on the card at
+   full width: 8 windows of 1 MB of seeded multi-script text with the
+   engine's stand-in vocabulary, once with the explicit capacity 3.0 and
+   once with the auto capacity (both hot routes: hot codepoints and hot
+   pieces). Each run's ids must equal the host engine's with no overflow,
+   and every kernel of the path must have launched. Prints each run's
+   kernel_mbps, device_ms, stage_us, wall_mbps and overlap dict. Then
+   holds K5+K6 (compact_record), K7+K8 (expand_route) and K1's class-word
+   entry (all four profiles) against their plain versions on the inputs
+   the auto run gave them at each of the path's shapes (the decode, the
+   hot-codepoint classes, the hot-piece probe), and on the same shapes
+   with an empty row, an all-kept (overflowing) row and a skewed row.
+7. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -145,6 +159,7 @@ def with_specials(text: str, seed: int, every: int = 1 << 16,
     return "".join(parts + [text[prev:]])
 
 
+@functools.lru_cache(maxsize=2)
 def standin_vocab(n_ranks: int, seed: int,
                   extra: str | None = None) -> dict[bytes, int]:
     """256 bytes, every pretoken of a seeded corpus sample (and of
@@ -235,6 +250,7 @@ def check_kernels(seed: int, dev) -> list[dict]:
     rows = []
 
     # ---- K1: piece starts, every profile ----
+    k1_err = 0
     for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
         got = BP.piece_starts_bits(by, nb, profile=prof)
         want = BP.piece_starts_bits_plain(by, nb, profile=prof)
@@ -243,6 +259,7 @@ def check_kernels(seed: int, dev) -> list[dict]:
         if err:
             bad = (got != want).nonzero()[:5].tolist()
             raise AssertionError(f"K1 {prof} differs at {bad}")
+        k1_err = max(k1_err, err)
     starts = BP.piece_starts_bits(by, nb, profile="llama4")
     ms = median_ms(lambda: BP.piece_starts_bits(by, nb, profile="llama4"))
     plain = median_ms(
@@ -255,7 +272,7 @@ def check_kernels(seed: int, dev) -> list[dict]:
         name="piece_starts", route="cuda",
         source="tokendagger_tpu_torch/csrc/piece_starts.cu",
         replaces="tokendagger_tpu/ops/bitplane.py:1152",
-        max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
+        max_abs_err=k1_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
         library_ms=None))
 
     # ---- K2+K3: piece keys (packed flags from K1, and byte flags) ----
@@ -272,6 +289,7 @@ def check_kernels(seed: int, dev) -> list[dict]:
         raise AssertionError("K2+K3 differs from its plain version")
     if not (max(npc) > p_cap and min(npc) == 0):
         raise AssertionError("edge windows did not cover overflow and empty")
+    k23_err = err
     ms = median_ms(lambda: CP.compact_piece_keys(starts, by, nb, p_cap,
                                                  packed=True))
     plain = median_ms(lambda: CP.compact_piece_keys_plain(
@@ -288,7 +306,7 @@ def check_kernels(seed: int, dev) -> list[dict]:
         source="tokendagger_tpu_torch/csrc/compact.cu",
         replaces="tokendagger_tpu/ops/compact_pallas.py:288 (compact_tiles) "
                  "+ :561 (degap_keys)",
-        max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
+        max_abs_err=k23_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
         library_ms=lib))
 
     # ---- K4: miss-span compaction at finalize's shapes ----
@@ -299,7 +317,7 @@ def check_kernels(seed: int, dev) -> list[dict]:
     miss[0] = live[0]          # every live slot missed
     k_got = CP.compact_by_mask([sb, pl], miss)
     k_want = CP.compact_by_mask_plain([sb, pl], miss)
-    err = max_abs_err(k_got, k_want)
+    err = k4_err = max_abs_err(k_got, k_want)
     print(f"K4 compact_by_mask: max_abs_err {err}")
     if err:
         raise AssertionError("K4 differs from its plain version")
@@ -315,7 +333,7 @@ def check_kernels(seed: int, dev) -> list[dict]:
         name="compact_by_mask", route="cuda",
         source="tokendagger_tpu_torch/csrc/compact.cu",
         replaces="tokendagger_tpu/ops/compact_pallas.py:830",
-        max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
+        max_abs_err=k4_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
         library_ms=lib))
     return rows
 
@@ -730,6 +748,254 @@ def window_choice(eng, host, text: str) -> None:
               for w, rs in rates.items()))
 
 
+RESIDENT_KERNELS = ("utf8_decode_block", "piece_starts_cp",
+                    "piece_starts_words", "compact_piece_keys",
+                    "compact_by_mask", "compact_record", "expand_route")
+
+
+def resident_counters():
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+
+    return dict(utf8_decode_block=PT.utf8_decode_block,
+                piece_starts_cp=BP.piece_starts_chars,
+                piece_starts_words=BP.piece_starts_words,
+                compact_piece_keys=CP.compact_piece_keys,
+                compact_by_mask=CP.compact_by_mask,
+                compact_record=CP.compact_record,
+                expand_route=CP.expand_route)
+
+
+@contextlib.contextmanager
+def recorded_inputs():
+    """Keeps copies of the inputs of the first launch of K5+K6, K7+K8 and
+    K1's class-word entry at each shape the main path gives them (the
+    run's untimed warm-up makes those first launches)."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+
+    seen: dict = {}
+    k5k6, k7k8, k1w = CP._launch_k5k6, CP._launch_k7k8, BP._launch_k1_words
+
+    def rec(key, args):
+        if key not in seen:
+            seen[key] = [[a.clone() for a in x] if isinstance(x, list)
+                         else x.clone() if isinstance(x, torch.Tensor) else x
+                         for x in args]
+
+    def spy5(arrays, mask, cap, fill):
+        rec(("compact_record", len(arrays), tuple(mask.shape), cap),
+            (arrays, mask, cap, fill))
+        return k5k6(arrays, mask, cap, fill)
+
+    def spy7(dense, route, mask):
+        rec(("expand_route", tuple(dense.shape), tuple(mask.shape)),
+            (dense, route, mask))
+        return k7k8(dense, route, mask)
+
+    def spy1(words, m, profile):
+        rec(("piece_starts_words", tuple(words.shape)), (words, m, profile))
+        return k1w(words, m, profile)
+
+    CP._launch_k5k6, CP._launch_k7k8, BP._launch_k1_words = spy5, spy7, spy1
+    try:
+        yield seen
+    finally:
+        CP._launch_k5k6, CP._launch_k7k8, BP._launch_k1_words = (
+            k5k6, k7k8, k1w)
+
+
+def run_resident_phase(seed: int, dev, *, reps: int = 20,
+                       n_ranks=200_000) -> tuple[dict, dict]:
+    """run_resident at 8 x 1 MB of multi-script text, explicit capacity
+    3.0 then auto; returns each kernel's launches over both runs and the
+    inputs the auto run gave K5+K6, K7+K8 and K1's class-word entry."""
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, run_resident
+
+    t = time.perf_counter()
+    ranks = standin_vocab(n_ranks, seed, extra=multiscript(1 << 20,
+                                                          seed + 4))
+    corpus = multiscript(9 * WINDOW, seed + 9).encode()
+    print(f"resident: stand-in vocab {len(ranks)} ranks, corpus "
+          f"{len(corpus)} B, set-up {time.perf_counter() - t:.1f} s")
+    counters = resident_counters()
+    launches = dict.fromkeys(counters, 0)
+    inputs: dict = {}
+    for cap in (3.0, 0):
+        for k in counters.values():
+            k.launches = 0
+        t = time.perf_counter()
+        with (recorded_inputs() if cap == 0 else contextlib.nullcontext(
+                {})) as seen:
+            r = run_resident(ranks, {}, LLAMA4_PATTERN, corpus,
+                             window=WINDOW, n_windows=BATCH, batch=BATCH,
+                             reps=reps, cap_bytes_per_piece=cap,
+                             probe_impl="chunks", device=dev)
+        run = {n: k.launches for n, k in counters.items()}
+        inputs.update(seen)
+        label = "cap 3.0" if cap else "auto cap"
+        print(f"resident {label}: impl {r.impl}, match_host {r.match_host}, "
+              f"overflow_windows {r.overflow_windows}, cap_bpp {r.cap_bpp}, "
+              f"probe_impl {r.probe_impl}, probe_hot {r.probe_hot}, "
+              f"total_tokens {r.total_tokens}, {time.perf_counter() - t:.1f} s")
+        print(f"resident {label}: kernel_mbps {r.kernel_mbps}, device_ms "
+              f"{r.device_ms}, wall_mbps {r.wall_mbps} (wall_ms {r.wall_ms}, "
+              f"calibration_ms {r.calibration_ms}), stage_us "
+              f"{json.dumps(r.stage_us)}")
+        print(f"resident {label}: overlap {json.dumps(r.overlap)}")
+        print(f"resident {label}: launches {json.dumps(run)}")
+        if not (r.match_host and r.overflow_windows == 0
+                and r.impl == "general"):
+            raise AssertionError(f"resident {label}: ids differ from the "
+                                 "host engine, or a window overflowed")
+        # K1 runs once per pipeline run: its entry counts the runs
+        runs = run["piece_starts_words"] + run["piece_starts_cp"]
+        per = 1 if cap else 3
+        if run["compact_record"] != per * runs or run[
+                "expand_route"] != per * runs:
+            raise AssertionError(f"resident {label}: K5+K6/K7+K8 launched "
+                                 f"{run} times in {runs} pipeline runs")
+        if cap == 0 and (r.probe_impl != "hot"
+                         or run["piece_starts_words"] != runs):
+            raise AssertionError("resident auto cap: a hot route is off")
+        for n, v in run.items():
+            launches[n] += v
+    dead = [n for n, v in launches.items() if v == 0]
+    if dead:
+        raise AssertionError(f"resident: kernels never launched: {dead}")
+    return launches, inputs
+
+
+def edge_masks(mask: torch.Tensor) -> torch.Tensor:
+    """``mask`` with row 0 empty, row 1 all kept and row 2 skewed (its
+    first half empty, its second half dense)."""
+    m = mask.clone()
+    N = m.shape[1]
+    m[0] = False
+    m[1] = True
+    if m.shape[0] > 2:
+        m[2, : N // 2] = False
+        m[2, N // 2 :] = torch.arange(N - N // 2, device=m.device) % 8 != 0
+    return m
+
+
+def check_resident_kernels(inputs: dict, dev) -> list[dict]:
+    """K5+K6, K7+K8 and K1's class-word entry against their plain versions
+    on the inputs the main path gave them, and on edge rows at the same
+    shapes; times at each shape."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+
+    # in the order the pipeline launches them: decode, classes, probe
+    k5 = [k for k in inputs if k[0] == "compact_record"]
+    k7 = [k for k in inputs if k[0] == "expand_route"]
+    k1 = [k for k in inputs if k[0] == "piece_starts_words"]
+    if len(k5) != 3 or len(k7) != 3 or len(k1) != 1:
+        raise AssertionError(f"expected three route shapes and one K1 word "
+                             f"shape, got {sorted(inputs)}")
+    names = ("decode", "classes", "probe")
+    rows = {}
+    err5 = err7 = 0
+    t5, t7 = {}, {}
+    for name, key5 in zip(names, k5):
+        arrays, mask, cap, fill = inputs[key5]
+        key7 = next(k for k in k7 if k[2] == tuple(mask.shape)
+                    and k[1][1] == cap)
+        B, N = mask.shape
+        e5 = e7 = 0
+        for m in (mask, edge_masks(mask)):
+            got = CP.compact_record(arrays, m, cap=cap, fill=fill)
+            want = CP.compact_record_plain(arrays, m, cap=cap, fill=fill)
+            e5 = max(e5, max_abs_err([*got[0], got[1], got[2]],
+                                     [*want[0], want[1], want[2]]))
+            dense = inputs[key7][0] if m is mask else got[0][0]
+            route = got[2]
+            back = CP.expand_route(dense, route, m)
+            e7 = max(e7, max_abs_err(
+                [back], [CP.expand_route_plain(dense, route, m)]))
+        print(f"K5+K6 compact_record [{name}: {len(arrays)} x {(B, N)} -> "
+              f"cap {cap}]: max_abs_err {e5}; K7+K8 expand_route: "
+              f"max_abs_err {e7} (main-path inputs and edge rows)")
+        if e5 or e7:
+            raise AssertionError(f"K5-K8 differ from their plain versions "
+                                 f"at the {name} shape")
+        err5, err7 = max(err5, e5), max(err7, e7)
+        # timing on the main path's inputs
+        got = CP.compact_record(arrays, mask, cap=cap, fill=fill)
+        kept = int(torch.clamp(got[1], max=cap).sum())
+        n_set = int(mask.sum())
+        stack = torch.stack(arrays)
+        src = torch.masked_select(arrays[0], mask)
+        out = torch.zeros((B, N), dtype=torch.int32, device=dev)
+        dense, route = inputs[key7][0], got[2]
+        fetched = int((mask & (route < cap)).sum())
+        t5[name] = (
+            median_ms(lambda: CP.compact_record(arrays, mask, cap=cap,
+                                                fill=fill)),
+            median_ms(lambda: CP.compact_record_plain(arrays, mask, cap=cap,
+                                                      fill=fill), reps=5),
+            median_ms(lambda: torch.masked_select(stack, mask)),
+            *bound(B * N + 4 * len(arrays) * kept
+                   + 4 * len(arrays) * B * cap + 4 * B * N + 4 * B, B * N))
+        t7[name] = (
+            median_ms(lambda: CP.expand_route(dense, route, mask)),
+            median_ms(lambda: CP.expand_route_plain(dense, route, mask),
+                      reps=5),
+            median_ms(lambda: out.masked_scatter_(mask, src)),
+            *bound(4 * B * N + B * N + 4 * fetched + 4 * B * N, B * N))
+        for lab, t in (("K5+K6", t5[name]), ("K7+K8", t7[name])):
+            print(f"{lab} [{name}, {n_set} of {B * N} set]: {t[0]:.4f} ms "
+                  f"(plain {t[1]:.3f} ms, library {t[2]:.4f} ms, bound "
+                  f"{t[3]:.5f} ms by {t[4]})")
+    for nm, src_, err, t, lib, rep in (
+            ("compact_record", "tokendagger_tpu/ops/compact_pallas.py:434 "
+             "(compact_tiles_masked) + :624 (degap_record)", err5, t5,
+             "masked_select", "csrc/route.cu"),
+            ("expand_route", "tokendagger_tpu/ops/compact_pallas.py:670 "
+             "(regap_replay) + :728 (expand_tiles_replay)", err7, t7,
+             "masked_scatter_", "csrc/route.cu")):
+        ms, plain, libms, bms, bby = t["decode"]
+        rows[nm] = dict(
+            name=nm, route="cuda", source=f"tokendagger_tpu_torch/{rep}",
+            replaces=src_, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bms, bound_by=bby, library_ms=libms,
+            ms_by_shape={k: v[0] for k, v in t.items()},
+            bound_ms_by_shape={k: v[3] for k, v in t.items()},
+            library=lib)
+
+    # ---- K1's class-word entry: the auto run's class words ----
+    words, m, _ = inputs[k1[0]]
+    werr = 0
+    short = m.clone()
+    short[0] = 12345                      # a ragged length, garbage after
+    for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+        err = 0
+        for mm in (m, short):
+            got = BP.piece_starts_words(words, mm, profile=prof)
+            want = BP.piece_starts_words_plain(words, mm, profile=prof)
+            err = max(err, max_abs_err([got], [want]))
+        print(f"K1 piece_starts_words[{prof}] {tuple(words.shape)}: "
+              f"max_abs_err {err}")
+        if err:
+            raise AssertionError(f"K1 class-word entry {prof} differs")
+        werr = max(werr, err)
+    B, C = words.shape
+    ms = median_ms(lambda: BP.piece_starts_words(words, m))
+    plain = median_ms(lambda: BP.piece_starts_words_plain(words, m), reps=3)
+    passes = BP.starts_passes("llama4", C)
+    bms, bby = bound(4 * B * C + B * C / 8 + 4 * B, passes * B * C / 32)
+    print(f"K1 piece_starts_words {(B, C)}: {ms:.4f} ms (plain {plain:.3f} "
+          f"ms, bound {bms:.5f} ms by {bby}; {passes} passes)")
+    rows["piece_starts_words"] = dict(
+        name="piece_starts_words", route="cuda",
+        source="tokendagger_tpu_torch/csrc/piece_starts.cu",
+        replaces="tokendagger_tpu/ops/bitplane.py:1152", max_abs_err=werr,
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby, library_ms=None)
+    return [rows["compact_record"], rows["expand_route"],
+            rows["piece_starts_words"]]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -758,21 +1024,26 @@ def main() -> int:
     rows = check_kernels(args.seed, "cuda") + check_engine_kernels(
         args.seed, "cuda")
     # each path runs with the counts set to 0 just before it; a kernel on
-    # both paths reports the sum of its launches in the two runs as
-    # "launches", and each path's count in "launches_by_path"
+    # several paths reports the sum of its launches as "launches", and
+    # each path's count in "launches_by_path"
     stream = run_stream(args.seed, args.mb, "cuda")
     engine, engine_errs = run_engine(args.seed, args.engine_mb, "cuda")
+    resident, inputs = run_resident_phase(args.seed, "cuda")
+    rows += check_resident_kernels(inputs, "cuda")
     for r in rows:
         by_path = dict(stream=stream.get(r["name"], 0),
-                       engine=engine.get(r["name"], 0))
+                       engine=engine.get(r["name"], 0),
+                       resident=resident.get(r["name"], 0))
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         r["max_abs_err"] = max(r["max_abs_err"],
                                engine_errs.get(r["name"], 0))
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "bound_by", "library_ms", "library", "ms_by_shape",
+            "bound_ms_by_shape")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

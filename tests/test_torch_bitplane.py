@@ -254,3 +254,119 @@ def test_piece_starts_chars_checks_inputs():
         TB.piece_starts_chars(cp, torch.tensor([1, 2], dtype=torch.int32))
     with pytest.raises(NotImplementedError):
         TB.piece_starts_chars(cp, 3, profile="p50k")
+
+
+# ---------------------------------------------------------------------------
+# Hot-codepoint class lookup and K1's class-word entry (the general
+# pipeline's starts under the auto capacity)
+# ---------------------------------------------------------------------------
+
+C_HOT = 32768
+HOT_POOL = (0x20, 0x200D, 0xFE0F, 0x1F3FB, ord("a"), ord("!"), 0x65E5,
+            0x1F600, 0x301, 0x41F, ord("'"), 0x017F)
+
+
+def _hot_windows(seed: int):
+    """(2, C_HOT) codepoints, 80% from HOT_POOL and the rest random below
+    0x2FFFF, 0 beyond each length (as the decode pads them)."""
+    rng = np.random.default_rng(seed)
+    cp = np.zeros((2, C_HOT), np.int32)
+    m = np.array([C_HOT - 1234, C_HOT // 2 + 77], np.int32)
+    for b in range(2):
+        pool = rng.choice(np.array(HOT_POOL), m[b])
+        rand = rng.integers(1, 0x2FFFF, m[b])
+        cp[b, : m[b]] = np.where(rng.random(m[b]) < 0.8, pool, rand)
+    return cp, m
+
+
+def test_class_lookup_hot_equals_jax(two_level):
+    cp, m = _hot_windows(7)
+    hot = HOT_POOL
+    want, want_ovf = JB.class_lookup_hot(
+        jnp.asarray(cp), jnp.asarray(m), *two_level, hot_cps=hot,
+        u_cap=C_HOT // 2, interpret=True)
+    got, ovf = TB.class_lookup_hot(torch.from_numpy(cp), torch.from_numpy(m),
+                                   hot_cps=hot, u_cap=C_HOT // 2)
+    assert got.dtype == torch.int32
+    assert np.array_equal(np.asarray(want_ovf), ovf.numpy())
+    assert not ovf.any()
+    want = np.asarray(want)
+    for b in range(2):
+        assert np.array_equal(want[b, : m[b]], got[b, : m[b]].numpy()), b
+    # an undersized u_cap raises the flag on both
+    _, w2 = JB.class_lookup_hot(jnp.asarray(cp), jnp.asarray(m), *two_level,
+                                hot_cps=(0x200D,), u_cap=4096, interpret=True)
+    _, g2 = TB.class_lookup_hot(torch.from_numpy(cp), torch.from_numpy(m),
+                                hot_cps=(0x200D,), u_cap=4096)
+    assert np.array_equal(np.asarray(w2), g2.numpy()) and g2.all()
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_piece_starts_chars_hot_equals_jax(two_level, profile):
+    cp, m = _hot_windows(8)
+    hot, u_cap = HOT_POOL, 8192
+    want, want_ovf = JB.piece_starts_bits_pallas(
+        jnp.asarray(cp), jnp.asarray(m), *two_level, profile=profile,
+        hot_cps=hot, u_cap=u_cap, interpret=True)
+    got, ovf = TB.piece_starts_chars(torch.from_numpy(cp),
+                                     torch.from_numpy(m), profile=profile,
+                                     hot_cps=hot, u_cap=u_cap)
+    assert np.array_equal(np.asarray(want_ovf), ovf.numpy())
+    assert not ovf.any()
+    assert np.array_equal(np.asarray(want), got.numpy())
+    # the same flags as the codepoint entry without the hot route
+    plain = TB.piece_starts_chars(torch.from_numpy(cp), torch.from_numpy(m),
+                                  profile=profile)
+    assert torch.equal(plain, got)
+
+
+def _host_kernel_words(words, m, profile):
+    from tokendagger_tpu_torch._build import host_library
+
+    lib = host_library("piece_starts_host")
+    vp = ctypes.c_void_p
+    lib.td_piece_starts_words_host.argtypes = [vp, vp, ctypes.c_int,
+                                               ctypes.c_int, ctypes.c_int, vp]
+    lib.td_piece_starts_words_host.restype = ctypes.c_int
+    B, n = words.shape
+    out = np.zeros((B, n // 32), np.uint32)
+    passes = lib.td_piece_starts_words_host(
+        words.ctypes.data, m.ctypes.data, B, n, TB._PROFILE_ID[profile],
+        out.ctypes.data)
+    return out.view(np.int32), passes
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_kernel_derivation_host_build_words_equals_plain(profile):
+    """K1's class-word entry, built for the host, equals its plain version
+    and the codepoint entry on the same windows (garbage words beyond
+    each length)."""
+    cp, m = _cp_windows(9)
+    cls, _ = TB.class_lookup_hot(torch.from_numpy(cp), torch.from_numpy(m),
+                                 hot_cps=(32, 97, 0x3000), u_cap=NC,
+                                 table=char_class_words(profile))
+    words = cls.numpy().copy()
+    rng = np.random.default_rng(10)
+    for b in range(words.shape[0]):
+        words[b, m[b]:] = rng.integers(0, 1 << 16, NC - m[b])
+    got, passes = _host_kernel_words(words, m, profile)
+    assert passes > 0, "kernel scratch planes exhausted"
+    want = TB.piece_starts_words(torch.from_numpy(words), torch.from_numpy(m),
+                                 profile=profile)
+    assert np.array_equal(want.numpy(), got)
+    cp_entry = TB.piece_starts_chars(torch.from_numpy(cp), torch.from_numpy(m),
+                                     profile=profile, packed_out=True)
+    assert np.array_equal(cp_entry.numpy(), got)
+
+
+def test_piece_starts_words_checks_inputs():
+    w = torch.zeros((1, 1024), dtype=torch.int32)
+    m = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        TB.piece_starts_words(w.to(torch.int16), m)
+    with pytest.raises(ValueError):
+        TB.piece_starts_words(w[:, :1000].contiguous(), m)
+    with pytest.raises(ValueError):
+        TB.piece_starts_words(w, m.to(torch.int64))
+    with pytest.raises(ValueError):
+        TB.piece_starts_chars(w, 3, hot_cps=(32,))

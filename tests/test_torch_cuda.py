@@ -156,3 +156,136 @@ def test_engine_card_equals_cpu(dev):
     ids = tok.encode(sample, allowed_special="all")
     assert ids == engines[1].host.encode(sample, tok.special_tokens_set)[0]
     assert tok.decode(ids) == sample
+
+
+# ---------------------------------------------------------------------------
+# The general pipeline's kernels: K5+K6, K7+K8, K1's class-word entry
+# ---------------------------------------------------------------------------
+
+
+def _route_masks(dev, B, N, cap, seed):
+    """Rows: random 30%, skewed (empty first half), empty, all kept (an
+    overflow when cap < N), random 60%, random 5%."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.rand((B, N), generator=g, device=dev) < 0.3
+    mask[1, : N // 2] = False
+    mask[2] = False
+    mask[3] = True
+    mask[4] = torch.rand((N,), generator=g, device=dev) < 0.6
+    mask[5] = torch.rand((N,), generator=g, device=dev) < 0.05
+    return mask, g
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("N,cap", [(100, 64), (65536, 32768), (70001, 90000),
+                                   (1 << 20, 655360)])
+def test_k5k8_equals_plain(dev, k, N, cap):
+    B = 6
+    mask, g = _route_masks(dev, B, N, cap, N + k)
+    arrays = [torch.randint(-2**31, 2**31 - 1, (B, N), generator=g,
+                            device=dev, dtype=torch.int32) for _ in range(k)]
+    for fill in (0, -1):
+        got = CP.compact_record(arrays, mask, cap=cap, fill=fill)
+        want = CP.compact_record_plain(arrays, mask, cap=cap, fill=fill)
+        torch.cuda.synchronize()
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[2], want[2])
+    dense = got[0][0]
+    back = CP.expand_route(dense, got[2], mask)
+    assert torch.equal(back, CP.expand_route_plain(dense, got[2], mask))
+    # a mask narrower than the compaction's
+    sub = mask & (torch.rand((B, N), generator=g, device=dev) < 0.5)
+    assert torch.equal(CP.expand_route(dense, got[2], sub),
+                       CP.expand_route_plain(dense, got[2], sub))
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_k1_words_equals_plain(dev, profile):
+    n = 1 << 15
+    by, nb = _utf8_windows(n + 2, n, dev)
+    cp, _, _, m = PT.utf8_decode(by, nb)
+    cp = cp.contiguous()
+    cls, _ = BP.class_lookup_hot(cp, m, hot_cps=(32, 101, 0x3000),
+                                 u_cap=n, table=BP.char_class_words(profile))
+    got = BP.piece_starts_words(cls, m, profile=profile)
+    want = BP.piece_starts_words_plain(cls, m, profile=profile)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # and through the codepoint entry, the same flags
+    assert torch.equal(got, BP.piece_starts_chars(cp, m, profile=profile,
+                                                  packed_out=True))
+
+
+def test_general_stages_card_equal_cpu(dev):
+    from tokendagger_tpu_torch.ops import join as JN
+    from tokendagger_tpu_torch.tables import build_vhash8
+    from torch_port_util import collision_vocab
+
+    n = 1 << 16
+    by, nb = _utf8_windows(21, n, dev)
+    res = []
+    for d_, nb_ in ((by, nb), (by.cpu(), nb.cpu())):
+        out = PT.utf8_decode_tiles(d_, nb_, c_cap=n // 2)
+        flags = PT.expand_starts_replay(
+            BP.piece_starts_chars(out[0], out[2]), out[1], out[3])
+        cls = BP.class_lookup_hot(out[0], out[2], hot_cps=(32, 97, 101),
+                                  u_cap=n // 4)
+        res.append([t.cpu() for t in (*out, flags, *cls)])
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+    ranks, crowd = collision_vocab(seed=3)
+    rows, mask, _ = build_vhash8(ranks)
+    toks = list(ranks)[:300] + crowd
+    keys = [JN.piece_key_words(t) for t in toks]
+    hot = keys[:40] + [JN.piece_key_words(b"\xff\xfe\xfd\xfc\x80!")]
+    hr = tuple(ranks.get(t, -1) for t in toks[:40]) + (-1,)
+    q = torch.tensor([k for k in keys for _ in range(3)], dtype=torch.int64)
+    q = torch.where(q >= 2**31, q - 2**32, q).to(torch.int32)
+    q = q.t().contiguous().reshape(5, 3, -1)
+    res = []
+    for d_ in (dev, torch.device("cpu")):
+        args = [q[j].to(d_).contiguous() for j in range(5)]
+        res.append(JN.vocab_probe_hot(
+            *args, torch.as_tensor(rows, device=d_), mask, hot_keys=tuple(hot),
+            hot_ranks=hr, u_cap=256))
+    for a, b in zip(*res):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_resident_card_equals_cpu(dev):
+    from conftest import make_tiny_vocab
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, run_resident
+
+    ranks, specials = make_tiny_vocab()
+    rng = np.random.default_rng(13)
+    corpus = multiscript_text(rng, 3 * 32768).encode()
+    counters = (CP.compact_record, CP.expand_route, BP.piece_starts_chars,
+                BP.piece_starts_words)
+    for cap in (3.0, 0):
+        r = []
+        for d in ("cuda", "cpu"):
+            for k in counters:
+                k.launches = 0
+            r.append(run_resident(
+                ranks, specials, LLAMA4_PATTERN, corpus, window=32768,
+                n_windows=2, batch=2, reps=2, cap_bytes_per_piece=cap,
+                probe_impl="chunks", overlap_trial=d == "cuda", device=d))
+            if d == "cuda":
+                n = [k.launches for k in counters]
+        assert r[0].match_host and r[1].match_host
+        for f in ("impl", "total_tokens", "cap_bpp", "probe_impl",
+                  "probe_hot", "overflow_windows"):
+            assert getattr(r[0], f) == getattr(r[1], f), f
+        assert r[0].device_ms > 0 and r[0].overlap is not None
+        assert set(r[0].stage_us) == {"decode", "starts", "expand",
+                                      "compact", "probe", "finalize"}
+        # per pipeline run: K5+K6 and K7+K8 once (the decode's route),
+        # three times under the auto capacity (both hot routes); K1's
+        # codepoint entry, or with the hot codepoints its class-word entry
+        runs = n[2] + n[3]
+        assert runs >= 4
+        per = 3 if cap == 0 else 1
+        assert n[0] == n[1] == per * runs
+        assert (n[3] if cap == 0 else n[2]) == runs

@@ -86,7 +86,7 @@ def test_port_imports_no_jax():
     files.append(REPO / "chip_smoke.py")
     names = {f.name for f in files}
     for new in ("engine.py", "wrapper.py", "streaming.py", "pretokenize.py",
-                "decode.py"):
+                "decode.py", "resident.py", "profiling.py"):
         assert new in names, new
     assert len(files) > 15
     for f in files:
@@ -101,7 +101,9 @@ def test_port_import_loads_no_jax():
             "tokendagger_tpu_torch.convert, tokendagger_tpu_torch.engine, "
             "tokendagger_tpu_torch.wrapper, tokendagger_tpu_torch.streaming, "
             "tokendagger_tpu_torch.ops.pretokenize, "
-            "tokendagger_tpu_torch.ops.decode; "
+            "tokendagger_tpu_torch.ops.decode, "
+            "tokendagger_tpu_torch.resident, "
+            "tokendagger_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tokendagger_tpu', 'regex')]; "
             "print(bad); sys.exit(1 if bad else 0)")

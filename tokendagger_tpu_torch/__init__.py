@@ -3,8 +3,9 @@
 A tiktoken-compatible BPE tokenizer whose device path turns raw byte
 windows into exact token ids. This package holds the port of the public
 API (``Tokenizer``/``Encoding`` over ``DeviceEngine``, safe-cut windows
-over any UTF-8 text) and of the ASCII corpus pipeline
-(``ResidentStream``): plain torch for the table probe, the decode and the
+over any UTF-8 text), of the ASCII corpus pipeline (``ResidentStream``)
+and of the window-batch harness ``run_resident`` with its general
+(multi-byte) pipeline: plain torch for the table probe, the decode and the
 glue, hand-written CUDA kernels for Hopper (``csrc/``) where the JAX
 package has Pallas kernels. Entry points run on the card unless the
 caller passes ``device="cpu"`` (or ``backend="host"``); on CPU tensors
@@ -13,6 +14,7 @@ every kernel's wrapper runs its plain torch version instead.
 
 from .engine import DeviceEngine, EngineStats
 from .hostengine import HostEngine, byte_pair_encode, byte_pair_merge
+from .resident import ResidentResult, run_resident
 from .residentstream import ResidentStream, StreamStats
 from .vocab import (
     CL100K_PATTERN,
@@ -38,6 +40,7 @@ __all__ = [
     "GPT2_PATTERN",
     "HostEngine",
     "LLAMA4_PATTERN",
+    "ResidentResult",
     "ResidentStream",
     "StreamStats",
     "TokenDaggerError",
@@ -49,4 +52,5 @@ __all__ = [
     "load_hf_special_tokens",
     "load_tiktoken_model",
     "load_tokenizer",
+    "run_resident",
 ]

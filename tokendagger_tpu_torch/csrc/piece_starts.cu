@@ -10,7 +10,10 @@
 //     from the per-codepoint table of unicode_tables.char_class_words
 //     (ascii_fast=False; _char_masks, :548-637). The JAX engine runs this
 //     form as XLA (bitplane.py:1011-1045); here it is the same kernel.
-//     The 2.2 MB table stays resident in the 50 MB L2.
+//     The 2.2 MB table stays resident in the 50 MB L2;
+//   * td_piece_starts_words: windows of per-char class words, as the
+//     hot-codepoint class lookup gives them (ascii_fast=False with
+//     hot_cps, :1111-1125; ops/bitplane.class_lookup_hot in the port).
 //
 // What bounds it on the H100: not bytes (a window reads 1 MB and writes
 // 128 KB) but the ~95 dependent scans of the derivation, each a pass over
@@ -177,6 +180,20 @@ piece_starts_cp_kernel(const int32_t* cp, const int32_t* nchars, int N,
   store_plane_major(S, C, out + (size_t)b * C);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+piece_starts_words_kernel(const int32_t* words, const int32_t* nchars, int N,
+                          int profile, uint32_t* scratch, uint32_t* out) {
+  __shared__ uint32_t s_wz[32], s_wo[32];
+  __shared__ uint32_t s_state[2 * 33];
+  const int b = blockIdx.x;
+  const int C = N / 32;
+  BlockOps o{scratch + (size_t)b * td::STARTS_PLANES * C, C, 0,
+             s_wz, s_wo, s_state};
+  const uint32_t* S = td::derive_window_words(o, words + (size_t)b * N,
+                                              nchars[b], profile, N);
+  store_plane_major(S, C, out + (size_t)b * C);
+}
+
 }  // namespace
 
 extern "C" {
@@ -216,6 +233,18 @@ int td_piece_starts_cp(const void* cp, const void* nchars, int B, int N,
   piece_starts_cp_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)cp, (const int32_t*)nchars, N, profile,
       (const uint16_t*)table, (uint32_t*)scratch, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// words (B, N) int32 class words per char (bits as char_class_words),
+// nchars (B,) int32 valid lengths, scratch and out as for td_piece_starts.
+// N must be a multiple of 1024.
+int td_piece_starts_words(const void* words, const void* nchars, int B,
+                          int N, int profile, void* scratch, void* out,
+                          void* stream) {
+  piece_starts_words_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)words, (const int32_t*)nchars, N, profile,
+      (uint32_t*)scratch, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

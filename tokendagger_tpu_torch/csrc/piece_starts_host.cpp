@@ -102,4 +102,22 @@ int td_piece_starts_cp_host(const int32_t* cp, const int32_t* nchars, int B,
   return passes;
 }
 
+// Same contract as td_piece_starts_words (piece_starts.cu) on host memory;
+// returns as td_piece_starts_host.
+int td_piece_starts_words_host(const int32_t* words, const int32_t* nchars,
+                               int B, int N, int profile, uint32_t* out) {
+  const int C = N / 32;
+  std::vector<uint32_t> scratch((size_t)2 * td::STARTS_PLANES * C);
+  int passes = 0;
+  for (int b = 0; b < B; ++b) {
+    SeqOps o{scratch.data(), C, 0, 0};
+    const uint32_t* S = td::derive_window_words(o, words + (size_t)b * N,
+                                                nchars[b], profile, N);
+    if (o.next > td::STARTS_PLANES) return -1;
+    store_plane_major(S, C, out + (size_t)b * C);
+    passes = o.passes;
+  }
+  return passes;
+}
+
 }  // extern "C"

@@ -192,29 +192,41 @@ TD_FN Masks build_masks(O& o, const uint8_t* data, int m,
 }
 
 // Mask construction for general text (_char_masks): chars at or beyond m
-// belong to no class; a valid char's classes come from the per-codepoint
-// table, table[cp[i]], and a codepoint outside [0, 0x10FFFF] has none.
-template <class O>
-TD_FN Masks build_masks_cp(O& o, const int32_t* cp, int m,
-                           const uint16_t* table) {
+// belong to no class; a valid char i has the class word cls(i).
+template <class O, class F>
+TD_FN Masks build_masks_from(O& o, int m, const F& cls) {
   Masks M;
   M.valid = o.plane();
   for (int i = 0; i < N_LUT_BITS; ++i) M.bit[i] = o.plane();
   o.each([&](int w) {
     uint32_t acc[N_LUT_BITS];
     for (int i = 0; i < N_LUT_BITS; ++i) acc[i] = 0u;
-    const int32_t* c = cp + 32 * (size_t)w;
     for (int j = 0; j < 32 && 32 * w + j < m; ++j) {
-      const uint32_t v = (uint32_t)c[j];
-      const uint32_t cls = v < 0x110000u ? (uint32_t)table[v] : 0u;
-      for (int i = 0; i < N_LUT_BITS; ++i)
-        acc[i] |= ((cls >> i) & 1u) << j;
+      const uint32_t c = cls(32 * w + j);
+      for (int i = 0; i < N_LUT_BITS; ++i) acc[i] |= ((c >> i) & 1u) << j;
     }
     for (int i = 0; i < N_LUT_BITS; ++i) M.bit[i][w] = acc[i];
     M.valid[w] = valid_word(w, m);
   });
   return M;
 }
+
+// Class words from codepoints: table[cp[i]] of the per-codepoint table; a
+// codepoint outside [0, 0x10FFFF] has none.
+struct CpClass {
+  const int32_t* cp;
+  const uint16_t* table;
+  TD_FN uint32_t operator()(int i) const {
+    const uint32_t v = (uint32_t)cp[i];
+    return v < 0x110000u ? (uint32_t)table[v] : 0u;
+  }
+};
+
+// Class words given per char (the hot-codepoint class lookup's output).
+struct WordClass {
+  const int32_t* words;
+  TD_FN uint32_t operator()(int i) const { return (uint32_t)words[i]; }
+};
 
 // stride_marks(seed, carrier, 3, n): positions reachable from a seed by
 // +3 steps whose spans lie in the carrier; log-doubling as the reference.
@@ -676,7 +688,16 @@ TD_FN uint32_t* derive_window(O& o, const uint8_t* data, int m,
 template <class O>
 TD_FN uint32_t* derive_window_cp(O& o, const int32_t* cp, int m,
                                  const uint16_t* table, int profile, int n) {
-  return derive_masks(o, build_masks_cp(o, cp, m, table), profile, n);
+  return derive_masks(o, build_masks_from(o, m, CpClass{cp, table}),
+                      profile, n);
+}
+
+// Whole window of per-char class words -> char-major start words.
+template <class O>
+TD_FN uint32_t* derive_window_words(O& o, const int32_t* words, int m,
+                                    int profile, int n) {
+  return derive_masks(o, build_masks_from(o, m, WordClass{words}), profile,
+                      n);
 }
 
 }  // namespace td

@@ -10,7 +10,11 @@ gpt2) two entry points turn windows into piece-start flags:
   by ``ops/pretokenize.utf8_decode``), with the contract of the JAX
   ``pretokenize.compute_starts`` and ``bitplane.piece_starts_bits(...,
   ascii_fast=False)``. Classes come from the per-codepoint table
-  ``unicode_tables.char_class_words``.
+  ``unicode_tables.char_class_words``. With ``hot_cps`` it takes the
+  route of the JAX ``piece_starts_bits_pallas(..., hot_cps=...)``: the
+  classes come from ``class_lookup_hot`` (hot codepoints by compare, the
+  rest looked up on a prefix compacted by kernel K5+K6 and put back by
+  K7+K8) and go into K1's class-word entry (``piece_starts_words``).
 
 Each of them:
 
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 
 from ..unicode_tables import (
-    CLASS_WORD_BITS, LC, N_CP, NUM, RN, UC, WS, char_class_words,
+    CLASS_WORD_BITS, LC, N_CP, NUM, RN, UC, WS, char_class_words, get_tables,
 )
 from .join import to_i32
 
@@ -247,7 +251,6 @@ _S, _T, _R, _E, _V, _M, _L, _D = range(8)
 def _ascii_class_members():
     """Member byte sets per class bit + fold-letter sets (ASCII only)."""
     from ..scanner_ref import _FOLD_ORDER
-    from ..unicode_tables import get_tables
 
     table, folds = get_tables()
     classes = {}
@@ -703,6 +706,8 @@ def _k1_library():
     lib.td_piece_starts.restype = i
     lib.td_piece_starts_cp.argtypes = [vp, vp, i, i, i, vp, vp, vp, vp]
     lib.td_piece_starts_cp.restype = i
+    lib.td_piece_starts_words.argtypes = [vp, vp, i, i, i, vp, vp, vp]
+    lib.td_piece_starts_words.restype = i
     lib.td_piece_starts_scratch_words.argtypes = [i]
     lib.td_piece_starts_scratch_words.restype = ctypes.c_longlong
     lib.td_piece_starts_passes.argtypes = [i, i]
@@ -782,16 +787,14 @@ def _class_words(profile: str, device: str) -> torch.Tensor:
     return torch.from_numpy(w.view(np.int16).copy()).to(device)
 
 
-def _char_masks_words(cp: torch.Tensor, m: torch.Tensor, profile: str):
-    """Packed (B, N/32) class words of codepoint windows: every class bit
-    of ``char_class_words`` at the chars below ``m`` (a codepoint outside
-    [0, 0x10FFFF] has none), and the contraction predicates from the
-    fold-letter groups of the next one and two chars."""
-    table = _class_words(profile, "cpu").to(cp.device)
-    n = cp.shape[-1]
-    valid = torch.arange(n, device=cp.device) < m.to(torch.int64)[:, None]
-    known = valid & (cp >= 0) & (cp <= N_CP - 1)
-    cls = torch.where(known, table[cp.clamp(0, N_CP - 1).to(torch.int64)], 0)
+def _class_word_masks(cls: torch.Tensor, m: torch.Tensor):
+    """Packed (B, N/32) class words from per-char class words ``cls``
+    (bits as ``char_class_words``) of the chars below ``m``, and the
+    contraction predicates from the fold-letter groups of the next one and
+    two chars."""
+    n = cls.shape[-1]
+    valid = torch.arange(n, device=cls.device) < m.to(torch.int64)[:, None]
+    cls = torch.where(valid, cls, 0)
     P = {name: pack_mask(((cls >> i) & 1).to(torch.bool))
          for i, name in enumerate(CLASS_WORD_BITS)}
     P["valid"] = pack_mask(valid)
@@ -799,6 +802,22 @@ def _char_masks_words(cp: torch.Tensor, m: torch.Tensor, profile: str):
     grv, ge, gl = P.pop("grv"), P.pop("ge"), P.pop("gl")
     P["fold2"] = (nxtk(grv, 1) & nxtk(ge, 2)) | (nxtk(gl, 1) & nxtk(gl, 2))
     return P
+
+
+def _table_classes(table: torch.Tensor, cp: torch.Tensor) -> torch.Tensor:
+    """``table[cp]`` as int32; a codepoint outside [0, 0x10FFFF] has
+    none."""
+    known = (cp >= 0) & (cp <= N_CP - 1)
+    return torch.where(known, table[cp.clamp(0, N_CP - 1).to(torch.int64)],
+                       0).to(torch.int32)
+
+
+def _char_masks_words(cp: torch.Tensor, m: torch.Tensor, profile: str):
+    """Packed (B, N/32) class words of codepoint windows: every class bit
+    of ``char_class_words`` at the chars below ``m`` (a codepoint outside
+    [0, 0x10FFFF] has none), and the contraction predicates."""
+    table = _class_words(profile, "cpu").to(cp.device)
+    return _class_word_masks(_table_classes(table, cp), m)
 
 
 def piece_starts_chars_plain(cp: torch.Tensor, m: torch.Tensor, *,
@@ -832,14 +851,21 @@ def _launch_k1_cp(cp: torch.Tensor, m: torch.Tensor, profile: str):
 
 
 def piece_starts_chars(cp: torch.Tensor, m, *, profile: str = "llama4",
-                       packed_out: bool = False) -> torch.Tensor:
+                       packed_out: bool = False, hot_cps=None,
+                       u_cap: int | None = None):
     """Char-level piece-start flags of codepoint windows (any text).
 
     ``cp`` (N,) or (B, N) int32 codepoints (anything at or beyond ``m``),
     ``m`` a scalar or (B,) int32 char counts on the same device; N a
     multiple of 1024. Returns bool flags of ``cp``'s shape, or with
     ``packed_out`` the (B, N/32) int32 plane-major words. CUDA tensors
-    run kernel K1 (codepoint entry); CPU tensors the plain version."""
+    run kernel K1 (codepoint entry); CPU tensors the plain version.
+
+    With ``hot_cps`` (and ``u_cap``) the classes come from
+    ``class_lookup_hot`` over ``char_class_words(profile)`` and K1 runs
+    its class-word entry; the return is then ``(starts, cls_overflow)``,
+    cls_overflow (B,) bool set where a window's non-hot chars exceed
+    ``u_cap`` (its flags are then wrong: the caller must fall back)."""
     if profile not in _PROFILE_ID:
         raise NotImplementedError(profile)
     one = cp.dim() == 1
@@ -853,16 +879,147 @@ def piece_starts_chars(cp: torch.Tensor, m, *, profile: str = "llama4",
     if m2.shape != (B,):
         raise ValueError(f"m must hold {B} char counts")
     m2 = m2.contiguous()
-    if cp.is_cuda:
-        words = _launch_k1_cp(c2, m2, profile)
-    elif cp.device.type == "cpu":
-        words = piece_starts_chars_plain(c2, m2, profile=profile)
-    else:
+    if cp.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {cp.device}")
+    ovf = None
+    if hot_cps is not None:
+        if u_cap is None:
+            raise ValueError("hot_cps needs u_cap")
+        cls, ovf = class_lookup_hot(c2, m2, hot_cps=hot_cps, u_cap=u_cap,
+                                    table=char_class_words(profile))
+        words = piece_starts_words(cls, m2, profile=profile)
+    elif cp.is_cuda:
+        words = _launch_k1_cp(c2, m2, profile)
+    else:
+        words = piece_starts_chars_plain(c2, m2, profile=profile)
     if packed_out:
-        return words
-    flags = unpack_mask(words)
-    return flags[0] if one else flags
+        out = words
+    else:
+        flags = unpack_mask(words)
+        out = flags[0] if one else flags
+    return out if ovf is None else (out, ovf)
 
 
 piece_starts_chars.launches = 0
+
+
+# ===========================================================================
+# Hot-codepoint class lookup and K1's class-word entry
+# ===========================================================================
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def _device_table(table: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``table`` as an int32 tensor on ``dev``, kept per table and
+    device (the tables are the cached arrays of ``unicode_tables``)."""
+    key = (id(table), str(dev))
+    hit = _DEVICE_TABLES.get(key)
+    if hit is None or hit[0] is not table:
+        t = torch.from_numpy(np.asarray(table).astype(np.int32)).to(dev)
+        hit = _DEVICE_TABLES[key] = (table, t)
+    return hit[1]
+
+
+@lru_cache(maxsize=8)
+def _hot_values(hot_cps: tuple, n_table: int, device: str) -> torch.Tensor:
+    """The distinct hot codepoints, sorted, as int32 on ``device``."""
+    hv = np.unique(np.asarray(hot_cps, np.int64))
+    if len(hv) and (hv[0] < 0 or hv[-1] >= n_table):
+        raise ValueError("hot codepoints must index the class table")
+    return torch.from_numpy(hv.astype(np.int32)).to(device)
+
+
+def class_lookup_hot(cp: torch.Tensor, m: torch.Tensor, *, hot_cps,
+                     u_cap: int, table: np.ndarray | None = None):
+    """Per-char class of a (B, C) codepoint batch with hot-codepoint
+    pre-classification: the JAX ``bitplane.class_lookup_hot``.
+
+    Chars equal to one of ``hot_cps`` take ``table[v]`` by compare; the
+    other chars below ``m`` are compacted to a (B, u_cap) prefix (kernel
+    K5+K6), looked up in ``table`` there, and put back (K7+K8). ``table``
+    is the (0x110000,) class table, by default the class bits of
+    ``unicode_tables.get_tables()``; K1's class-word entry wants
+    ``char_class_words(profile)``. Returns (cls (B, C) int32, overflow
+    (B,) bool): overflow is set where a window's non-hot chars exceed
+    ``u_cap``, and that window's classes are then wrong."""
+    from .compact import compact_record, expand_route  # compact imports us
+
+    if table is None:
+        table = get_tables()[0]
+    cp = cp.contiguous()
+    dev = cp.device
+    tab = _device_table(table, dev)
+    hot_v = _hot_values(tuple(int(v) for v in hot_cps), len(table), str(dev))
+    B, C = cp.shape
+    valid = torch.arange(C, device=dev) < m.to(torch.int64)[:, None]
+    if len(hot_v):
+        pos = torch.searchsorted(hot_v, cp).clamp(max=len(hot_v) - 1)
+        hot = hot_v[pos] == cp
+        cls_hot = tab[hot_v.to(torch.int64)][pos]
+    else:
+        hot = torch.zeros_like(valid)
+        cls_hot = torch.zeros_like(cp)
+    unknown = valid & ~hot
+    (cp_u,), n_unknown, route = compact_record([cp], unknown, cap=u_cap)
+    cls_back = expand_route(_table_classes(tab, cp_u), route, unknown)
+    return torch.where(hot, cls_hot, cls_back), n_unknown > u_cap
+
+
+def piece_starts_words_plain(words: torch.Tensor, m: torch.Tensor, *,
+                             profile: str = "llama4") -> torch.Tensor:
+    """Plain torch version of K1's class-word entry: (B, N) int32 class
+    words -> (B, N/32) int32 plane-major start words."""
+    contractions = profile != "nocontract"
+    return derive_starts_words(_class_word_masks(words, m),
+                               contractions=contractions,
+                               n_total=words.shape[-1], profile=profile)
+
+
+def _launch_k1_words(words: torch.Tensor, m: torch.Tensor, profile: str):
+    lib = _k1_library()
+    B, N = words.shape
+    dev = words.device
+    scratch = torch.empty(B * lib.td_piece_starts_scratch_words(N),
+                          dtype=torch.int32, device=dev)
+    out = torch.empty((B, N // 32), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.td_piece_starts_words(
+            words.data_ptr(), m.data_ptr(), B, N, _PROFILE_ID[profile],
+            scratch.data_ptr(), out.data_ptr(), stream)
+    if rc:
+        raise RuntimeError(
+            f"piece_starts_words kernel launch failed: CUDA error {rc}")
+    piece_starts_words.launches += 1
+    return out
+
+
+def piece_starts_words(words: torch.Tensor, m: torch.Tensor, *,
+                       profile: str = "llama4") -> torch.Tensor:
+    """Plane-major (B, N/32) int32 start words of windows given as (B, N)
+    int32 per-char class words (bits as ``char_class_words``; anything at
+    or beyond the (B,) int32 char counts ``m``). N a multiple of 1024.
+    CUDA tensors run K1's class-word entry; CPU tensors the plain
+    version."""
+    if profile not in _PROFILE_ID:
+        raise NotImplementedError(profile)
+    if (words.dim() != 2 or words.dtype != torch.int32
+            or not words.is_contiguous()):
+        raise ValueError("words must be a contiguous (B, N) int32 tensor")
+    B, N = words.shape
+    if N % 1024:
+        raise ValueError(f"window length {N} is not a multiple of 1024")
+    if (m.shape != (B,) or m.dtype != torch.int32 or m.device != words.device
+            or not m.is_contiguous()):
+        raise ValueError("m must be a contiguous (B,) int32 tensor on the "
+                         "words' device")
+    if words.is_cuda:
+        return _launch_k1_words(words, m, profile)
+    if words.device.type != "cpu":
+        raise ValueError(f"unsupported device {words.device}")
+    return piece_starts_words_plain(words, m, profile=profile)
+
+
+piece_starts_words.launches = 0

@@ -1,5 +1,6 @@
-"""Piece-key compaction (kernel K2+K3), masked compaction (kernel K4) and
-the window finalize built on it.
+"""Piece-key compaction (kernel K2+K3), masked compaction (kernel K4), the
+window finalize built on it, and compaction with a recorded route (kernels
+K5+K6) with its inverse (K7+K8).
 
 Counterparts of the JAX package's ``ops/compact_pallas``:
 
@@ -14,9 +15,20 @@ Counterparts of the JAX package's ``ops/compact_pallas``:
 * ``compact_by_mask`` stably compacts int32 arrays by a mask, ``fill``
   beyond the kept count.
 * ``finalize`` returns the 9-tuple of ``finalize_butterfly``.
+* ``compact_record`` and ``expand_route`` have the composed contract of
+  ``compact_tiles_masked`` + ``degap_record`` and of ``regap_replay`` +
+  ``expand_tiles_replay``: compact a mask's elements to a dense prefix,
+  then put values computed on that prefix back on the mask's slots. The
+  JAX package's route (gapped rows and butterfly take masks) is internal
+  to it; the port's route is a (B, N) int32 tensor holding each masked
+  element's rank in its row and -1 off the mask. The compaction's scan
+  yields it for free, and the expansion is then one gather pass that
+  writes every slot (no clearing, no scatter conflicts). A per-slot
+  source index (B, cap) would need a scatter and a cleared output.
 
-CUDA tensors run the kernels of ``csrc/compact.cu``; CPU tensors the plain
-versions below. Key words are int32 tensors carrying the uint32 bits.
+CUDA tensors run the kernels of ``csrc/compact.cu`` (K2-K4) and
+``csrc/route.cu`` (K5-K8); CPU tensors the plain versions below. Key words
+are int32 tensors carrying the uint32 bits.
 """
 
 from __future__ import annotations
@@ -81,6 +93,32 @@ def compact_by_mask_plain(arrays, mask: torch.Tensor, *, fill: int = 0):
     return outs
 
 
+def compact_record_plain(arrays, mask: torch.Tensor, *, cap: int,
+                         fill: int = 0):
+    """Plain torch version of K5+K6 (see ``compact_record``)."""
+    B, N = mask.shape
+    keep = mask.to(torch.bool)
+    rank = torch.cumsum(keep, dim=1, dtype=torch.int32) - 1
+    totals = keep.sum(dim=1, dtype=torch.int32)
+    route = torch.where(keep, rank, -1).to(torch.int32)
+    slot = torch.where(keep & (rank < cap), rank, cap).to(torch.int64)
+    outs = []
+    for a in arrays:
+        buf = torch.full((B, cap + 1), fill, dtype=a.dtype, device=a.device)
+        buf.scatter_(1, slot, a)
+        outs.append(buf[:, :cap].contiguous())
+    return outs, totals, route
+
+
+def expand_route_plain(dense: torch.Tensor, route: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K7+K8 (see ``expand_route``)."""
+    cap = dense.shape[1]
+    ok = mask.to(torch.bool) & (route >= 0) & (route < cap)
+    idx = torch.where(ok, route, 0).to(torch.int64)
+    return torch.where(ok, torch.gather(dense, 1, idx), 0).to(torch.int32)
+
+
 # ===========================================================================
 # Kernels
 # ===========================================================================
@@ -99,6 +137,23 @@ def _library():
     lib.td_compact_by_mask.argtypes = [
         vp, i, i, ctypes.POINTER(vp), ctypes.POINTER(vp), i, i, vp, vp]
     lib.td_compact_by_mask.restype = i
+    return lib
+
+
+@lru_cache(maxsize=None)
+def _route_library():
+    from .._build import cuda_library
+
+    lib = cuda_library("route")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.td_route_tiles.argtypes = [i]
+    lib.td_route_tiles.restype = i
+    lib.td_compact_record.argtypes = [
+        vp, i, i, ctypes.POINTER(vp), ctypes.POINTER(vp), i, i, i, vp, vp,
+        vp, vp]
+    lib.td_compact_record.restype = i
+    lib.td_expand_route.argtypes = [vp, vp, vp, i, i, i, vp, vp]
+    lib.td_expand_route.restype = i
     return lib
 
 
@@ -145,6 +200,39 @@ def _launch_k4(arrays, mask, fill: int):
     _check(rc, "compact_by_mask")
     compact_by_mask.launches += 1
     return outs
+
+
+def _launch_k5k6(arrays, mask, cap: int, fill: int):
+    lib = _route_library()
+    B, N = mask.shape
+    dev = mask.device
+    counts = torch.empty((B, lib.td_route_tiles(N)), dtype=torch.int32,
+                         device=dev)
+    outs = [torch.empty((B, cap), dtype=torch.int32, device=dev)
+            for _ in arrays]
+    route = torch.empty((B, N), dtype=torch.int32, device=dev)
+    totals = torch.empty((B,), dtype=torch.int32, device=dev)
+    k = len(arrays)
+    ins_p = (ctypes.c_void_p * k)(*[a.data_ptr() for a in arrays])
+    outs_p = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
+    rc = lib.td_compact_record(mask.data_ptr(), B, N, ins_p, outs_p, k, cap,
+                               fill, counts.data_ptr(), route.data_ptr(),
+                               totals.data_ptr(), _stream(dev))
+    _check(rc, "compact_record")
+    compact_record.launches += 1
+    return outs, totals, route
+
+
+def _launch_k7k8(dense, route, mask):
+    lib = _route_library()
+    B, N = mask.shape
+    out = torch.empty((B, N), dtype=torch.int32, device=mask.device)
+    rc = lib.td_expand_route(dense.data_ptr(), route.data_ptr(),
+                             mask.data_ptr(), B, N, dense.shape[1],
+                             out.data_ptr(), _stream(mask.device))
+    _check(rc, "expand_route")
+    expand_route.launches += 1
+    return out
 
 
 def _require(t: torch.Tensor, name: str, shape, dtype, dev) -> None:
@@ -215,6 +303,61 @@ def compact_by_mask(arrays, mask: torch.Tensor, *, fill: int = 0):
 
 
 compact_by_mask.launches = 0
+
+
+def _require_mask(mask: torch.Tensor) -> None:
+    if mask.dim() != 2 or mask.dtype != torch.bool or not mask.is_contiguous():
+        raise ValueError("mask must be a contiguous (B, N) bool tensor")
+    B, N = mask.shape
+    if not (1 <= B <= 65535 and N >= 1):
+        raise ValueError(f"mask shape {(B, N)} out of range")
+    if mask.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {mask.device}")
+
+
+def compact_record(arrays, mask: torch.Tensor, *, cap: int, fill: int = 0):
+    """Stable-compact 1-8 (B, N) int32 arrays by the (B, N) bool ``mask``,
+    recording the route back.
+
+    Returns (dense, totals, route): the (B, cap) int32 arrays holding each
+    row's kept elements in order, ``fill`` beyond the kept count; the (B,)
+    int32 kept counts, which exceed ``cap`` when the row overflowed (its
+    first ``cap`` kept elements are still exact); and the (B, N) int32
+    route, each kept element's rank in its row and -1 elsewhere. CUDA
+    tensors run kernel K5+K6, CPU tensors the plain version."""
+    _require_mask(mask)
+    if not 1 <= len(arrays) <= 8:
+        raise ValueError("compact_record takes 1 to 8 arrays")
+    if cap < 1:
+        raise ValueError("cap must be positive")
+    for a in arrays:
+        _require(a, "array", mask.shape, torch.int32, mask.device)
+    if mask.is_cuda:
+        return _launch_k5k6(list(arrays), mask, cap, fill)
+    return compact_record_plain(arrays, mask, cap=cap, fill=fill)
+
+
+compact_record.launches = 0
+
+
+def expand_route(dense: torch.Tensor, route: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``compact_record``: (B, N) int32 holding
+    ``dense[b, route[b, j]]`` on each slot j of ``mask`` whose rank is
+    below ``cap = dense.shape[1]``, and 0 on every other slot. CUDA
+    tensors run kernel K7+K8, CPU tensors the plain version."""
+    _require_mask(mask)
+    B, N = mask.shape
+    if dense.dim() != 2 or dense.shape[0] != B or dense.shape[1] < 1:
+        raise ValueError("dense must be a (B, cap) tensor with cap >= 1")
+    _require(dense, "dense", dense.shape, torch.int32, mask.device)
+    _require(route, "route", (B, N), torch.int32, mask.device)
+    if mask.is_cuda:
+        return _launch_k7k8(dense, route, mask)
+    return expand_route_plain(dense, route, mask)
+
+
+expand_route.launches = 0
 
 
 def finalize(start_b, piece_len, rank, n_pieces, *, p_cap: int):

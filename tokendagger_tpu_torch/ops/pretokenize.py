@@ -11,9 +11,17 @@ Counterparts of the JAX package's ``ops/pretokenize`` (``utf8_decode``,
   (``compact.compact_by_mask``) for the compaction the JAX function does
   with two scatters.
 * ``starts_to_bytes`` maps char-level piece-start flags to byte flags.
+* ``utf8_decode_tiles`` and ``expand_starts_replay`` are the batched
+  general pipeline's decode and its inverse (the JAX functions of those
+  names): the codepoints of the lead bytes compacted to a dense (B, c_cap)
+  prefix by kernel K5+K6 (``compact.compact_record``), with the route that
+  K7+K8 (``compact.expand_route``) follows to put char-level piece-start
+  flags back on the lead bytes.
 
-Every function takes a (B, N) batch of windows with (B,) int32 lengths,
-or one (N,) window with a scalar length, as the JAX functions do.
+``utf8_decode``, ``utf8_decode_block`` and ``starts_to_bytes`` take a
+(B, N) batch of windows with (B,) int32 lengths, or one (N,) window with a
+scalar length, as the JAX functions do; the general pipeline's functions
+take batches.
 """
 
 from __future__ import annotations
@@ -23,7 +31,9 @@ from functools import lru_cache
 
 import torch
 
-from .compact import _check, _require, _stream, compact_by_mask
+from .compact import (
+    _check, _require, _stream, compact_by_mask, compact_record, expand_route,
+)
 
 MAX_CP = 0x10FFFF
 
@@ -150,3 +160,43 @@ def starts_to_bytes(starts_char: torch.Tensor, char_of_byte: torch.Tensor,
     is_lead = ((d.to(torch.int32) & 0xC0) != 0x80) & (idx < nb[:, None])
     out = torch.gather(sc, 1, cob.clamp(0, N - 1).to(torch.int64)) & is_lead
     return out[0] if one else out
+
+
+# ===========================================================================
+# The batched general pipeline's decode and its inverse
+# ===========================================================================
+
+
+def utf8_codepoints_at_leads(data: torch.Tensor, nbytes: torch.Tensor):
+    """Per-byte codepoint (valid at lead bytes; K9) and the (B, N) bool
+    mask of the lead bytes below ``nbytes``: the JAX
+    ``_utf8_codepoints_at_leads``."""
+    cp_at, is_start = utf8_decode_block(data)
+    idx = torch.arange(data.shape[1], dtype=torch.int32, device=data.device)
+    return cp_at, (is_start != 0) & (idx < nbytes[:, None])
+
+
+def utf8_decode_tiles(data: torch.Tensor, nbytes: torch.Tensor, *,
+                      c_cap: int | None = None):
+    """General UTF-8 decode of a window batch with its route.
+
+    ``data`` (B, N) uint8, ``nbytes`` (B,) int32. Returns (cp (B, c_cap)
+    int32, the codepoints of the lead bytes in order and 0 at and beyond
+    ``n_chars``; lead (B, N) bool; n_chars (B,) int32, which exceeds
+    ``c_cap`` when the window has more chars; route, for
+    ``expand_starts_replay``): the JAX ``utf8_decode_tiles``."""
+    d, nb, _ = _batched(data, nbytes)
+    C = c_cap or d.shape[1]
+    cp_at, lead = utf8_codepoints_at_leads(d, nb)
+    (cp,), n_chars, route = compact_record([cp_at], lead, cap=C, fill=0)
+    return cp, lead, n_chars, route
+
+
+def expand_starts_replay(starts_char: torch.Tensor, lead: torch.Tensor,
+                         route: torch.Tensor) -> torch.Tensor:
+    """Byte-level piece-start flags from char-level ones: byte j's flag is
+    ``lead[j] & starts_char[rank(j)]`` (0 for a char past ``c_cap``), with
+    ``rank`` and ``route`` from ``utf8_decode_tiles``."""
+    flags = expand_route(starts_char.to(torch.int32).contiguous(), route,
+                         lead)
+    return flags != 0
