@@ -22,15 +22,18 @@
 4. Drives ResidentStream on the card over at least 16 MB with a seeded
    200,000-rank stand-in vocabulary, checks the first batch's ids against
    the host engine, no host fallback, and one launch of each kernel per
-   batch, and prints the wall rate and per-stage times.
+   batch, and prints the wall rate and per-stage times, and the device's
+   idle share of one more encode under torch.profiler.
 5. Drives Tokenizer(backend="device") over at least 12 MB of seeded
    multi-script text with specials sprinkled over its last third, so
    that the first 8 MB segment runs in 4 MB windows cut at safe offsets
    (a 200,000-rank stand-in that also holds the text's own pieces):
    encode, a 64-text encode_batch and the device decode must equal the
    host engine and the text. Prints the wall rate with its host-clock
-   split, the kernels' launches per window, the per-stage device times
-   of one 4 MB window, and the wall rate of an ordinary encode with 1 MB
+   split, the device's idle share of one more encode under
+   torch.profiler, the kernels' launches per window, the per-stage
+   device times of one 4 MB window, and the wall rate of an ordinary
+   encode with 1 MB
    and with 4 MB windows of the same text plus a 5 MB digit run (one
    class run, so windows grow to 16 MB), whose ids must equal the host
    engine's.
@@ -45,7 +48,10 @@
    entry (all four profiles) against their plain versions on the inputs
    the auto run gave them at each of the path's shapes (the decode, the
    hot-codepoint classes, the hot-piece probe), and on the same shapes
-   with an empty row, an all-kept (overflowing) row and a skewed row.
+   with an empty row, an all-kept (overflowing) row and a skewed row;
+   and K9, K1's codepoint entry (all four profiles), K2+K3 and K4 on the
+   inputs each run gave them, with an edge row each. Every kernel's
+   times at the path's shapes join its row of the kernels line.
 7. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
@@ -478,6 +484,7 @@ def run_stream(seed: int, mb: int, dev, *, window=WINDOW, batch=BATCH,
           f"({time.perf_counter() - t:.1f} s)")
     if dev != "cpu":
         stage_times(rs, wins[:batch])
+        idle_share(lambda: rs.encode(text), f"stream encode of {len(text)} B")
     return dict(zip(("piece_starts", "compact_piece_keys", "compact_by_mask"),
                     launches))
 
@@ -512,6 +519,39 @@ def stage_times(rs, wins) -> None:
     )
     print("stage ms (one batch of 8 x 1 MB): " + ", ".join(
         f"{k} {v:.4f}" for k, v in t.items()))
+
+
+def idle_share(fn, what: str) -> None:
+    """Runs ``fn`` once untraced and once under ``profile_trace``; prints
+    both walls, the device's busy time in the trace (the union of its
+    kernels and copies) and the device's idle share of the traced wall."""
+    import tempfile
+
+    from tokendagger_tpu_torch.utils.profiling import (
+        device_busy_us, profile_trace,
+    )
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        with profile_trace(d):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        busy_us, n = device_busy_us(d)
+    if not n:
+        print(f"{what}: idle share not measured (the trace holds no "
+              f"kernels); wall {untraced_ms:.3f} ms untraced, "
+              f"{wall_ms:.3f} ms traced")
+        return
+    print(f"{what}: device busy {busy_us / 1e3:.3f} ms of {wall_ms:.3f} ms "
+          f"traced wall ({n} kernels), idle share "
+          f"{1 - busy_us / 1e3 / wall_ms:.4f}; wall {untraced_ms:.3f} ms "
+          "untraced")
 
 
 def engine_counters():
@@ -588,6 +628,9 @@ def run_engine(seed: int, mb: int, dev, *,
                              f"id {first_diff(ids, want)}")
     print(f"engine ids equal the host engine ({len(ids)} ids, host "
           f"{time.perf_counter() - t:.1f} s)")
+    if dev != "cpu":
+        idle_share(lambda: tok.encode(text, allowed_special="all"),
+                   f"engine encode of {nbytes} B")
 
     rng = np.random.default_rng(seed + 7)
     cuts = np.sort(rng.integers(0, len(text), 128)).tolist()
@@ -767,50 +810,66 @@ def resident_counters():
                 expand_route=CP.expand_route)
 
 
+# each kernel's launcher, by module: the one place its wrapper launches it
+LAUNCHERS = (("utf8_decode_block", "pretokenize", "_launch_k9"),
+             ("piece_starts_cp", "bitplane", "_launch_k1_cp"),
+             ("piece_starts_words", "bitplane", "_launch_k1_words"),
+             ("compact_piece_keys", "compact", "_launch_k2k3"),
+             ("compact_by_mask", "compact", "_launch_k4"),
+             ("compact_record", "compact", "_launch_k5k6"),
+             ("expand_route", "compact", "_launch_k7k8"))
+
+
+def _arg_key(x):
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape)
+    if isinstance(x, list):
+        return (len(x), tuple(x[0].shape))
+    return x
+
+
+def _arg_copy(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, list):
+        return [a.clone() for a in x]
+    return x
+
+
 @contextlib.contextmanager
 def recorded_inputs():
-    """Keeps copies of the inputs of the first launch of K5+K6, K7+K8 and
-    K1's class-word entry at each shape the main path gives them (the
-    run's untimed warm-up makes those first launches)."""
-    from tokendagger_tpu_torch.ops import bitplane as BP
-    from tokendagger_tpu_torch.ops import compact as CP
+    """Keeps copies of the arguments of each kernel's first launch at each
+    shape the main path gives it, keyed (kernel, shapes and scalars of
+    the arguments); the run's untimed warm-up makes those first
+    launches."""
+    import importlib
 
     seen: dict = {}
-    k5k6, k7k8, k1w = CP._launch_k5k6, CP._launch_k7k8, BP._launch_k1_words
+    saved = []
+    for name, mod, fn in LAUNCHERS:
+        m = importlib.import_module(f"tokendagger_tpu_torch.ops.{mod}")
+        orig = getattr(m, fn)
 
-    def rec(key, args):
-        if key not in seen:
-            seen[key] = [[a.clone() for a in x] if isinstance(x, list)
-                         else x.clone() if isinstance(x, torch.Tensor) else x
-                         for x in args]
+        def spy(*args, _name=name, _orig=orig):
+            key = (_name, *map(_arg_key, args))
+            if key not in seen:
+                seen[key] = [_arg_copy(a) for a in args]
+            return _orig(*args)
 
-    def spy5(arrays, mask, cap, fill):
-        rec(("compact_record", len(arrays), tuple(mask.shape), cap),
-            (arrays, mask, cap, fill))
-        return k5k6(arrays, mask, cap, fill)
-
-    def spy7(dense, route, mask):
-        rec(("expand_route", tuple(dense.shape), tuple(mask.shape)),
-            (dense, route, mask))
-        return k7k8(dense, route, mask)
-
-    def spy1(words, m, profile):
-        rec(("piece_starts_words", tuple(words.shape)), (words, m, profile))
-        return k1w(words, m, profile)
-
-    CP._launch_k5k6, CP._launch_k7k8, BP._launch_k1_words = spy5, spy7, spy1
+        saved.append((m, fn, orig))
+        setattr(m, fn, spy)
     try:
         yield seen
     finally:
-        CP._launch_k5k6, CP._launch_k7k8, BP._launch_k1_words = (
-            k5k6, k7k8, k1w)
+        for m, fn, orig in saved:
+            setattr(m, fn, orig)
 
 
 def run_resident_phase(seed: int, dev, *, reps: int = 20,
                        n_ranks=200_000) -> tuple[dict, dict]:
     """run_resident at 8 x 1 MB of multi-script text, explicit capacity
-    3.0 then auto; returns each kernel's launches over both runs and the
-    inputs the auto run gave K5+K6, K7+K8 and K1's class-word entry."""
+    3.0 then auto; returns each kernel's launches over both runs and, by
+    run, the arguments of each kernel's first launch at each shape."""
     from tokendagger_tpu_torch import LLAMA4_PATTERN, run_resident
 
     t = time.perf_counter()
@@ -825,16 +884,14 @@ def run_resident_phase(seed: int, dev, *, reps: int = 20,
     for cap in (3.0, 0):
         for k in counters.values():
             k.launches = 0
+        label = "cap 3.0" if cap else "auto cap"
         t = time.perf_counter()
-        with (recorded_inputs() if cap == 0 else contextlib.nullcontext(
-                {})) as seen:
+        with recorded_inputs() as inputs[label]:
             r = run_resident(ranks, {}, LLAMA4_PATTERN, corpus,
                              window=WINDOW, n_windows=BATCH, batch=BATCH,
                              reps=reps, cap_bytes_per_piece=cap,
                              probe_impl="chunks", device=dev)
         run = {n: k.launches for n, k in counters.items()}
-        inputs.update(seen)
-        label = "cap 3.0" if cap else "auto cap"
         print(f"resident {label}: impl {r.impl}, match_host {r.match_host}, "
               f"overflow_windows {r.overflow_windows}, cap_bpp {r.cap_bpp}, "
               f"probe_impl {r.probe_impl}, probe_hot {r.probe_hot}, "
@@ -882,8 +939,9 @@ def edge_masks(mask: torch.Tensor) -> torch.Tensor:
 
 def check_resident_kernels(inputs: dict, dev) -> list[dict]:
     """K5+K6, K7+K8 and K1's class-word entry against their plain versions
-    on the inputs the main path gave them, and on edge rows at the same
-    shapes; times at each shape."""
+    on the inputs the auto run gave them (``inputs``, as
+    ``recorded_inputs`` keeps them), and on edge rows at the same shapes;
+    times at each shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
 
@@ -900,7 +958,7 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
     t5, t7 = {}, {}
     for name, key5 in zip(names, k5):
         arrays, mask, cap, fill = inputs[key5]
-        key7 = next(k for k in k7 if k[2] == tuple(mask.shape)
+        key7 = next(k for k in k7 if k[3] == tuple(mask.shape)
                     and k[1][1] == cap)
         B, N = mask.shape
         e5 = e7 = 0
@@ -961,6 +1019,7 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
             replaces=src_, max_abs_err=err, ms=ms, plain_ms=plain,
             bound_ms=bms, bound_by=bby, library_ms=libms,
             ms_by_shape={k: v[0] for k, v in t.items()},
+            plain_ms_by_shape={k: v[1] for k, v in t.items()},
             bound_ms_by_shape={k: v[3] for k, v in t.items()},
             library=lib)
 
@@ -996,6 +1055,115 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
             rows["piece_starts_words"]]
 
 
+SHARED_KERNELS = ("utf8_decode_block", "piece_starts_cp",
+                  "compact_piece_keys", "compact_by_mask")
+
+
+def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
+    """The kernels the resident path shares with the other paths (K9, K1's
+    codepoint entry, K2+K3, K4) against their plain versions on the
+    inputs each resident run gave them (``runs``: label -> the run's
+    ``recorded_inputs``), and on edge rows at the same shapes: random
+    bytes for K9, a ragged char count for K1 (all four profiles), an
+    empty window for K2+K3, an all-missed row for K4. Returns each
+    kernel's largest error, and its (ms, plain ms, bound ms, bound by)
+    by shape."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+
+    todo: dict = {}
+    for label, seen in runs.items():
+        for key, args in seen.items():
+            if key[0] in SHARED_KERNELS:
+                todo.setdefault(key, (label, args))
+    errs = dict.fromkeys(SHARED_KERNELS, 0)
+    times: dict = {k: {} for k in SHARED_KERNELS}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for key, (label, args) in todo.items():
+        name = key[0]
+        if name == "utf8_decode_block":
+            (d,) = args
+            B, N = shape = d.shape
+            edge = d.clone()
+            edge[0] = torch.randint(0, 256, (N,), generator=g, device=dev,
+                                    dtype=torch.uint8)
+            err = max(max_abs_err(PT.utf8_decode_block(x),
+                                  PT.utf8_decode_block_plain(x))
+                      for x in (d, edge))
+            t = (median_ms(lambda: PT.utf8_decode_block(d)),
+                 median_ms(lambda: PT.utf8_decode_block_plain(d), reps=5),
+                 *bound(9 * B * N, 20 * B * N))
+        elif name == "piece_starts_cp":
+            cp, m, _ = args
+            B, C = shape = cp.shape
+            short = m.clone()
+            short[0] = 12345               # a ragged length, garbage after
+            err = 0
+            for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+                e = max(max_abs_err(
+                    [BP.piece_starts_chars(cp, mm, profile=prof,
+                                           packed_out=True)],
+                    [BP.piece_starts_chars_plain(cp, mm, profile=prof)])
+                    for mm in (m, short))
+                print(f"K1 piece_starts_cp[{prof}] {(B, C)}: max_abs_err {e}")
+                err = max(err, e)
+            passes = BP.starts_passes("llama4", C)
+            t = (median_ms(lambda: BP.piece_starts_chars(cp, m,
+                                                         packed_out=True)),
+                 median_ms(lambda: BP.piece_starts_chars_plain(cp, m), reps=3),
+                 *bound(4 * B * C + B * C / 8 + 4 * B, passes * B * C / 32))
+        elif name == "compact_piece_keys":
+            starts, d, nb, p_cap, packed = args
+            B, N = d.shape
+            shape = (B, N, p_cap)
+            empty = nb.clone()
+            empty[0] = 0
+            err = max(max_abs_err(
+                CP.compact_piece_keys(starts, d, n, p_cap, packed=packed),
+                CP.compact_piece_keys_plain(starts, d, n, p_cap,
+                                            packed=packed))
+                for n in (nb, empty))
+            got = CP.compact_piece_keys(starts, d, nb, p_cap, packed=packed)
+            key_bytes = int(torch.clamp(got[1], max=16).sum())
+            flag_bytes = B * N / 8 if packed else B * N
+            t = (median_ms(lambda: CP.compact_piece_keys(starts, d, nb, p_cap,
+                                                         packed=packed)),
+                 median_ms(lambda: CP.compact_piece_keys_plain(
+                     starts, d, nb, p_cap, packed=packed), reps=5),
+                 *bound(flag_bytes + key_bytes + 8 * B + 24 * B * p_cap,
+                        B * N))
+        else:                                       # compact_by_mask
+            arrays, mask, fill = args
+            B, P = shape = mask.shape
+            edge = mask.clone()
+            edge[0] = True
+            err = max(max_abs_err(CP.compact_by_mask(arrays, mm, fill=fill),
+                                  CP.compact_by_mask_plain(arrays, mm,
+                                                           fill=fill))
+                      for mm in (mask, edge))
+            kept = int(mask.sum())
+            k = len(arrays)
+            t = (median_ms(lambda: CP.compact_by_mask(arrays, mask,
+                                                      fill=fill)),
+                 median_ms(lambda: CP.compact_by_mask_plain(arrays, mask,
+                                                            fill=fill)),
+                 *bound(B * P + 4 * k * kept + 4 * k * B * P, B * P))
+        at = f"resident {label} {tuple(shape)}"
+        print(f"{name} [{at}]: max_abs_err {err} (main-path inputs and an "
+              f"edge row); {t[0]:.4f} ms (plain {t[1]:.3f} ms, bound "
+              f"{t[2]:.5f} ms by {t[3]})")
+        if err:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{at}")
+        errs[name] = max(errs[name], err)
+        times[name][at] = t
+    missing = [k for k in SHARED_KERNELS if not times[k]]
+    if missing:
+        raise AssertionError(f"resident: no recorded inputs for {missing}")
+    return errs, times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1029,19 +1197,26 @@ def main() -> int:
     stream = run_stream(args.seed, args.mb, "cuda")
     engine, engine_errs = run_engine(args.seed, args.engine_mb, "cuda")
     resident, inputs = run_resident_phase(args.seed, "cuda")
-    rows += check_resident_kernels(inputs, "cuda")
+    rows += check_resident_kernels(inputs["auto cap"], "cuda")
+    resident_errs, resident_times = check_resident_shared(inputs, args.seed,
+                                                          "cuda")
     for r in rows:
-        by_path = dict(stream=stream.get(r["name"], 0),
-                       engine=engine.get(r["name"], 0),
-                       resident=resident.get(r["name"], 0))
+        name = r["name"]
+        by_path = dict(stream=stream.get(name, 0),
+                       engine=engine.get(name, 0),
+                       resident=resident.get(name, 0))
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
-        r["max_abs_err"] = max(r["max_abs_err"],
-                               engine_errs.get(r["name"], 0))
+        r["max_abs_err"] = max(r["max_abs_err"], engine_errs.get(name, 0),
+                               resident_errs.get(name, 0))
+        for at, t in resident_times.get(name, {}).items():
+            r.setdefault("ms_by_shape", {})[at] = t[0]
+            r.setdefault("plain_ms_by_shape", {})[at] = t[1]
+            r.setdefault("bound_ms_by_shape", {})[at] = t[2]
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library", "ms_by_shape",
-            "bound_ms_by_shape")
+            "plain_ms_by_shape", "bound_ms_by_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

@@ -110,12 +110,20 @@ def test_fused_ascii_pipeline_matches_host():
     (dict(batch=2, impl="sort"), "item 12"),
     (dict(batch=2, impl="ascii-sort"), "item 12"),
     (dict(batch=2, miss_mode="device"), "item 13"),
+    (dict(batch=2, join_mode="sort"), "item 13"),
 ])
 def test_left_out_combinations_raise(corpus, kw, item):
     ranks, specials = make_tiny_vocab()
     with pytest.raises(NotImplementedError, match=item):
         run_resident(ranks, specials, LLAMA4_PATTERN, corpus, window=W,
                      n_windows=2, device="cpu", **kw)
+
+
+def test_more_than_one_trial_raises(corpus):
+    ranks, specials = make_tiny_vocab()
+    with pytest.raises(ValueError, match="one trial"):
+        run_resident(ranks, specials, LLAMA4_PATTERN, corpus, window=W,
+                     n_windows=2, batch=2, trials=2, device="cpu")
 
 
 def test_default_device_is_the_card(corpus):
@@ -144,3 +152,21 @@ def test_profiling_helpers(tmp_path):
     for m in (a, b):
         m.add(123456, 789, 0.25)
     assert json.loads(a.to_json()) == json.loads(b.to_json())
+
+
+def test_device_busy_us(tmp_path):
+    # a CPU trace holds no device activity
+    with TPF.profile_trace(str(tmp_path / "cpu")):
+        torch.arange(1000).sum()
+    assert TPF.device_busy_us(str(tmp_path / "cpu")) == (0.0, 0)
+    assert TPF.device_busy_us(str(tmp_path / "none")) == (0.0, 0)
+    # overlapping and nested intervals count once; host events not at all
+    ev = [dict(ph="X", cat="kernel", ts=10.0, dur=5.0),
+          dict(ph="X", cat="kernel", ts=12.0, dur=1.0),
+          dict(ph="X", cat="gpu_memcpy", ts=14.0, dur=4.0),
+          dict(ph="X", cat="gpu_memset", ts=30.0, dur=2.0),
+          dict(ph="X", cat="cpu_op", ts=0.0, dur=100.0),
+          dict(ph="i", cat="kernel", ts=50.0)]
+    (tmp_path / "h.1.pt.trace.json").write_text(json.dumps(
+        {"traceEvents": ev}))
+    assert TPF.device_busy_us(str(tmp_path)) == (10.0, 2)

@@ -168,9 +168,9 @@ def run_resident(
     window: int = 1 << 20,
     n_windows: int = 8,
     reps: int = 32,
-    trials: int = 1,  # kept for the reference's signature
+    trials: int = 1,  # the reference's signature; one trial only
     verify: bool = True,
-    join_mode: str = "probe",  # used only with miss_mode != "host"
+    join_mode: str = "probe",  # the reference's; "probe" only
     miss_mode: str = "host",
     batch: int = 1,
     impl: str = "auto",
@@ -199,6 +199,11 @@ def run_resident(
         raise ValueError(f"unsupported device {dev}")
     if miss_mode != "host":
         raise _not_ported(f"miss_mode={miss_mode!r} (device BPE merge)", 13)
+    if join_mode != "probe":
+        raise _not_ported(f"join_mode={join_mode!r} (device BPE merge)", 13)
+    if trials != 1:
+        raise ValueError("run_resident runs one trial (the reference "
+                         "ignores trials)")
     on_card = dev.type == "cuda"
     N = window
 

@@ -2,6 +2,8 @@
 
 * ``profile_trace(dir)``: a ``torch.profiler`` trace of host and (with a
   card) CUDA activity, written to ``dir`` as a Chrome/Perfetto trace.
+* ``device_busy_us(dir)``: the device's busy time in such a trace, from
+  which a caller derives the device's idle share of a wall interval.
 * ``Timer``: nestable wall-clock section timer with a report.
 * ``RateMeter``: bytes/tokens throughput accounting; its JSON schema is
   the JAX package's (``tokendagger_tpu/utils/profiling.py``).
@@ -13,6 +15,7 @@ import contextlib
 import json
 import time
 from collections import defaultdict
+from pathlib import Path
 from typing import Iterator
 
 import torch
@@ -31,6 +34,28 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=acts,
                                 on_trace_ready=handler) as prof:
         yield prof
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy_us(log_dir: str) -> tuple[float, int]:
+    """Busy time of the device in the newest trace of ``log_dir``: the
+    union of its kernel, copy and memset intervals in µs, and its number
+    of kernels. (0.0, 0) when the trace holds no device activity."""
+    paths = sorted(Path(log_dir).glob("*.pt.trace.json"),
+                   key=lambda p: p.stat().st_mtime)
+    if not paths:
+        return 0.0, 0
+    events = json.loads(paths[-1].read_text()).get("traceEvents", [])
+    dev = [e for e in events
+           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, sum(e["cat"] == "kernel" for e in dev)
 
 
 class Timer:
