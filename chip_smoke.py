@@ -9,16 +9,25 @@
    p_cap 349,568), on seeded ASCII windows plus edge cases (an empty
    window, a one-piece window, punctuation that overflows p_cap, a length
    that is not a multiple of 32, garbage bytes beyond the length). Every
-   output must be equal; each kernel's median time (CUDA events) is
-   printed beside its bound and the plain version's time.
+   output must be equal. Each kernel gets two times: ``ms``, device-only
+   (CUDA events around a run of launches enqueued while the card is
+   busy, so the host's time between launches is not counted), and
+   ``call_ms``, one call with a synchronize after it; both beside its
+   bound and the plain version's time. A library yardstick
+   (``masked_select``, ``masked_scatter_``) gets its device time from a
+   torch.profiler trace, since it synchronizes on the host. K4 must run
+   one kernel per call; K1 must spread each window over many blocks.
 3. Holds the kernels of the public API's engine against their plain
    versions at the engine's shapes: the UTF-8 decode (K9) on 4 MB and
    16 MB windows of seeded multi-script text and invalid UTF-8, and K1's
-   codepoint entry on 4 MB multi-script windows for all four profiles.
+   codepoint entry on 4 MB and 16 MB multi-script windows (with an empty
+   window and a ragged length inside the first segment) for all four
+   profiles.
    After step 5's run, every kernel of the engine's window pipeline (K9,
    K4 in the decode's compaction, K1, K2+K3, K4 in finalize) is held
    against its plain version stage by stage on one 4 MB window and on
-   one grown 16 MB window of that run's texts.
+   one grown 16 MB window of that run's texts, and K4 is timed at the
+   decode's and finalize_host's shapes there.
 4. Drives ResidentStream on the card over at least 16 MB with a seeded
    200,000-rank stand-in vocabulary, checks the first batch's ids against
    the host engine, no host fallback, and one launch of each kernel per
@@ -213,6 +222,9 @@ def edge_windows(seed: int, n: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Median time of one synchronized call of ``fn`` (CUDA events around
+    each call, a synchronize after it): a short kernel's reading includes
+    its wrapper's host time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -228,9 +240,104 @@ def median_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20, runs: int = 5, warmup: int = 2) -> float:
+    """Device-only time of one call of ``fn``, which must not synchronize:
+    a CUDA event, ``reps`` calls enqueued back to back on inputs prepared
+    beforehand, another event, one synchronize; the median over ``runs``
+    such runs of the time between the events over ``reps``. A sleep
+    kernel queued before the first event keeps the card busy while the
+    host enqueues the calls, so the host's time between launches is not
+    counted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-4)))  # cycles, <= 2 GHz
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    return statistics.median(times)
+
+
+def traced(fn, reps: int = 10) -> tuple[float, float]:
+    """Device time and kernel count of one call of ``fn`` from a short
+    torch.profiler trace of ``reps`` calls: the union of their kernel,
+    copy and memset intervals, and their kernels, each over ``reps``. For
+    library calls that synchronize on the host (``masked_select`` must
+    learn its output size), where events around a run of calls would
+    count the host's gaps."""
+    import tempfile
+
+    from tokendagger_tpu_torch.utils.profiling import (
+        device_busy_us, profile_trace,
+    )
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with profile_trace(d):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy_us, n = device_busy_us(d)
+    if not n:
+        raise AssertionError("the profiler trace holds no kernels")
+    return busy_us / 1e3 / reps, n / reps
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def timings(fn, plain, n_bytes: float, n_ops: float,
+            plain_reps: int = 5) -> dict:
+    """A kernel's device-only time (``ms``), its synchronized call time
+    (``call_ms``), its plain version's call time and its bound."""
+    bms, bby = bound(n_bytes, n_ops)
+    return dict(ms=device_ms(fn), call_ms=median_ms(fn),
+                plain_ms=median_ms(plain, reps=plain_reps), bound_ms=bms,
+                bound_by=bby)
+
+
+def library(fn, what: str) -> dict:
+    """A library yardstick: device time from a trace, synchronized call
+    time, and what it computes."""
+    return dict(library_ms=traced(fn)[0], library_call_ms=median_ms(fn),
+                library=what)
+
+
+def show(t: dict) -> str:
+    s = (f"{t['ms']:.4f} ms on the device ({t['call_ms']:.4f} ms per "
+         f"synchronized call; plain {t['plain_ms']:.3f} ms, bound "
+         f"{t['bound_ms']:.5f} ms by {t['bound_by']})")
+    if t.get("library_ms") is not None:
+        s += (f"; {t['library']}: {t['library_ms']:.4f} ms on the device, "
+              f"{t['library_call_ms']:.4f} ms per call")
+    return s
+
+
+def k1_blocks(entry: str, B: int, N: int) -> int:
+    """K1's blocks per window at (B, N); fails unless a launch uses at
+    least min(132, 16 B) blocks (for windows of at least 132 words)."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+
+    spw = BP.starts_blocks_per_window(entry, B, N)
+    if spw < 2 or spw * B < min(132, 16 * B, N // 32):
+        raise AssertionError(f"K1 {entry} at {(B, N)}: {spw} blocks per "
+                             "window")
+    return spw
 
 
 def max_abs_err(got, want) -> int:
@@ -267,19 +374,19 @@ def check_kernels(seed: int, dev) -> list[dict]:
             raise AssertionError(f"K1 {prof} differs at {bad}")
         k1_err = max(k1_err, err)
     starts = BP.piece_starts_bits(by, nb, profile="llama4")
-    ms = median_ms(lambda: BP.piece_starts_bits(by, nb, profile="llama4"))
-    plain = median_ms(
-        lambda: BP.piece_starts_bits_plain(by, nb, profile="llama4"), reps=3)
     passes = BP.starts_passes("llama4", N)
-    bms, bby = bound(B * N + B * N / 8 + 4 * B, passes * B * N / 32)
-    print(f"K1 piece_starts: {ms:.4f} ms (plain {plain:.3f} ms, bound "
-          f"{bms:.5f} ms by {bby}; {passes} passes over the planes)")
+    spw = k1_blocks("bytes", B, N)
+    t = timings(lambda: BP.piece_starts_bits(by, nb, profile="llama4"),
+                lambda: BP.piece_starts_bits_plain(by, nb, profile="llama4"),
+                B * N + B * N / 8 + 4 * B, passes * B * N / 32, plain_reps=3)
+    print(f"K1 piece_starts {(B, N)}: {show(t)}; {passes} passes over the "
+          f"planes, {spw} blocks per window")
     rows.append(dict(
         name="piece_starts", route="cuda",
         source="tokendagger_tpu_torch/csrc/piece_starts.cu",
         replaces="tokendagger_tpu/ops/bitplane.py:1152",
-        max_abs_err=k1_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
-        library_ms=None))
+        max_abs_err=k1_err, **t, library_ms=None, passes=passes,
+        blocks_per_window=spw))
 
     # ---- K2+K3: piece keys (packed flags from K1, and byte flags) ----
     got = CP.compact_piece_keys(starts, by, nb, p_cap, packed=True)
@@ -296,24 +403,23 @@ def check_kernels(seed: int, dev) -> list[dict]:
     if not (max(npc) > p_cap and min(npc) == 0):
         raise AssertionError("edge windows did not cover overflow and empty")
     k23_err = err
-    ms = median_ms(lambda: CP.compact_piece_keys(starts, by, nb, p_cap,
-                                                 packed=True))
-    plain = median_ms(lambda: CP.compact_piece_keys_plain(
-        starts, by, nb, p_cap, packed=True), reps=5)
     idx = torch.arange(N, device=dev).expand(B, N)
-    lib = median_ms(lambda: torch.masked_select(idx, flags))
     key_bytes = int(torch.clamp(got[1], max=16).sum())
-    bms, bby = bound(B * N / 8 + key_bytes + 4 * B + 24 * B * p_cap + 4 * B,
-                     B * N)
-    print(f"K2+K3 compact_piece_keys: {ms:.4f} ms (plain {plain:.3f} ms, "
-          f"masked_select {lib:.4f} ms, bound {bms:.5f} ms by {bby})")
+    t = timings(lambda: CP.compact_piece_keys(starts, by, nb, p_cap,
+                                              packed=True),
+                lambda: CP.compact_piece_keys_plain(starts, by, nb, p_cap,
+                                                    packed=True),
+                B * N / 8 + key_bytes + 4 * B + 24 * B * p_cap + 4 * B, B * N)
+    t.update(library(lambda: torch.masked_select(idx, flags),
+                     "masked_select of the start positions only (no keys, "
+                     "no lengths)"))
+    print(f"K2+K3 compact_piece_keys: {show(t)}")
     rows.append(dict(
         name="compact_piece_keys", route="cuda",
         source="tokendagger_tpu_torch/csrc/compact.cu",
         replaces="tokendagger_tpu/ops/compact_pallas.py:288 (compact_tiles) "
                  "+ :561 (degap_keys)",
-        max_abs_err=k23_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
-        library_ms=lib))
+        max_abs_err=k23_err, **t))
 
     # ---- K4: miss-span compaction at finalize's shapes ----
     sb, pl = got[0], got[1]
@@ -324,23 +430,25 @@ def check_kernels(seed: int, dev) -> list[dict]:
     k_got = CP.compact_by_mask([sb, pl], miss)
     k_want = CP.compact_by_mask_plain([sb, pl], miss)
     err = k4_err = max_abs_err(k_got, k_want)
-    print(f"K4 compact_by_mask: max_abs_err {err}")
+    n_kern = traced(lambda: CP.compact_by_mask([sb, pl], miss))[1]
+    print(f"K4 compact_by_mask: max_abs_err {err}; {n_kern} kernel per call")
     if err:
         raise AssertionError("K4 differs from its plain version")
-    ms = median_ms(lambda: CP.compact_by_mask([sb, pl], miss))
-    plain = median_ms(lambda: CP.compact_by_mask_plain([sb, pl], miss))
+    if n_kern != 1:
+        raise AssertionError(f"K4 ran {n_kern} kernels in one call")
     both = torch.stack([sb, pl])
-    lib = median_ms(lambda: torch.masked_select(both, miss))
     kept = int(miss.sum())
-    bms, bby = bound(B * p_cap + 8 * kept + 8 * B * p_cap, B * p_cap)
-    print(f"K4 compact_by_mask: {ms:.4f} ms (plain {plain:.3f} ms, "
-          f"masked_select {lib:.4f} ms, bound {bms:.5f} ms by {bby})")
+    t = timings(lambda: CP.compact_by_mask([sb, pl], miss),
+                lambda: CP.compact_by_mask_plain([sb, pl], miss),
+                B * p_cap + 8 * kept + 8 * B * p_cap, B * p_cap)
+    t.update(library(lambda: torch.masked_select(both, miss),
+                     "masked_select of both arrays"))
+    print(f"K4 compact_by_mask {(B, p_cap)}, k 2, {kept} kept: {show(t)}")
     rows.append(dict(
         name="compact_by_mask", route="cuda",
         source="tokendagger_tpu_torch/csrc/compact.cu",
         replaces="tokendagger_tpu/ops/compact_pallas.py:830",
-        max_abs_err=k4_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
-        library_ms=lib))
+        max_abs_err=k4_err, **t))
     return rows
 
 
@@ -386,56 +494,73 @@ def check_engine_kernels(seed: int, dev) -> list[dict]:
     timing = {}
     for name, w in (("4 MB", wins[0]), ("16 MB", wins[-1])):
         n = w.numel()
-        timing[name] = (median_ms(lambda: PT.utf8_decode_block(w)),
-                        median_ms(lambda: PT.utf8_decode_block_plain(w),
-                                  reps=5),
-                        *bound(9 * n, 20 * n))
-        print(f"K9 utf8_decode_block {name}: {timing[name][0]:.4f} ms "
-              f"(plain {timing[name][1]:.3f} ms, bound "
-              f"{timing[name][2]:.5f} ms by {timing[name][3]})")
-    ms, plain, bms, bby = timing["4 MB"]
+        timing[name] = timings(lambda: PT.utf8_decode_block(w),
+                               lambda: PT.utf8_decode_block_plain(w),
+                               9 * n, 20 * n)
+        print(f"K9 utf8_decode_block {name}: {show(timing[name])}")
     rows.append(dict(
         name="utf8_decode_block", route="cuda",
         source="tokendagger_tpu_torch/csrc/utf8.cu",
         replaces="tokendagger_tpu/ops/pallas_scan.py:91",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
-        library_ms=None))
+        max_abs_err=err, **timing["4 MB"], library_ms=None,
+        **by_shape({"engine 16 MB (1, 16777216)": timing["16 MB"]})))
 
-    # ---- K1, codepoint entry: 4 MB multi-script windows ----
-    nb = torch.tensor([ENGINE_WINDOW], dtype=torch.int32, device=dev)
-    cps = []
-    for w in wins[:2]:
-        cp, _, _, m = PT.utf8_decode(w, nb)
-        cps.append((cp, m))
-    cp_short = cps[0][0].clone()
-    m_short = torch.tensor([12345], dtype=torch.int32, device=dev)
-    cps.append((cp_short, m_short))        # a ragged length, garbage after
+    # ---- K1, codepoint entry: 4 MB multi-script windows and a 16 MB one,
+    # each also with an empty window and a ragged length inside the first
+    # segment, garbage after ----
     cp_err = 0
-    for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
-        err = 0
-        for cp, m in cps:
-            got = BP.piece_starts_chars(cp, m, profile=prof, packed_out=True)
-            want = BP.piece_starts_chars_plain(cp, m, profile=prof)
-            err = max(err, max_abs_err([got], [want]))
-        print(f"K1 piece_starts_cp[{prof}]: max_abs_err {err}")
-        if err:
-            raise AssertionError(f"K1 codepoint entry {prof} differs")
-        cp_err = max(cp_err, err)
-    cp, m = cps[0]
-    N = cp.shape[1]
-    ms = median_ms(lambda: BP.piece_starts_chars(cp, m, packed_out=True))
-    plain = median_ms(lambda: BP.piece_starts_chars_plain(cp, m), reps=3)
-    passes = BP.starts_passes("llama4", N)
-    bms, bby = bound(4 * N + N / 8 + 4, passes * N / 32)
-    print(f"K1 piece_starts_cp (one 4 MB window): {ms:.4f} ms (plain "
-          f"{plain:.3f} ms, bound {bms:.5f} ms by {bby}; {passes} passes)")
+    timing = {}
+    for label, wl in (("4 MB", wins[:2]), ("16 MB", wins[-1:])):
+        N = wl[0].shape[1]
+        nb = torch.tensor([N], dtype=torch.int32, device=dev)
+        cps = [PT.utf8_decode(w, nb)[::3] for w in wl]
+        for n in (0, 12345):
+            cps.append((cps[0][0], torch.tensor([n], dtype=torch.int32,
+                                                device=dev)))
+        for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+            err = 0
+            for cp, m in cps:
+                got = BP.piece_starts_chars(cp, m, profile=prof,
+                                            packed_out=True)
+                want = BP.piece_starts_chars_plain(cp, m, profile=prof)
+                err = max(err, max_abs_err([got], [want]))
+            print(f"K1 piece_starts_cp[{prof}] {label}: max_abs_err {err}")
+            if err:
+                raise AssertionError(f"K1 codepoint entry {prof} differs at "
+                                     f"{label}")
+            cp_err = max(cp_err, err)
+        cp, m = cps[0]
+        passes = BP.starts_passes("llama4", N)
+        timing[label] = timings(
+            lambda: BP.piece_starts_chars(cp, m, packed_out=True),
+            lambda: BP.piece_starts_chars_plain(cp, m),
+            4 * N + N / 8 + 4, passes * N / 32, plain_reps=3)
+        timing[label].update(passes=passes,
+                             blocks_per_window=k1_blocks("codepoints", 1, N))
+        print(f"K1 piece_starts_cp (one {label} window): "
+              f"{show(timing[label])}; {passes} passes, "
+              f"{timing[label]['blocks_per_window']} blocks per window")
     rows.append(dict(
         name="piece_starts_cp", route="cuda",
         source="tokendagger_tpu_torch/csrc/piece_starts.cu",
         replaces="tokendagger_tpu/ops/bitplane.py:1152",
-        max_abs_err=cp_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
-        library_ms=None))
+        max_abs_err=cp_err, **timing["4 MB"], library_ms=None,
+        **by_shape({"engine 16 MB (1, 16777216)": timing["16 MB"]})))
     return rows
+
+
+SHAPE_KEYS = ("ms", "call_ms", "plain_ms", "bound_ms", "blocks_per_window")
+
+
+def by_shape(times: dict) -> dict:
+    """{shape: timings} -> {"ms_by_shape": {shape: ms}, ...} for the keys
+    of SHAPE_KEYS the timings hold."""
+    out: dict = {}
+    for shape, t in times.items():
+        for k in SHAPE_KEYS:
+            if k in t:
+                out.setdefault(f"{k}_by_shape", {})[shape] = t[k]
+    return out
 
 
 def run_stream(seed: int, mb: int, dev, *, window=WINDOW, batch=BATCH,
@@ -571,10 +696,11 @@ def first_diff(a: list, b: list) -> int:
 
 
 def run_engine(seed: int, mb: int, dev, *,
-               n_ranks=200_000) -> tuple[dict, dict]:
+               n_ranks=200_000) -> tuple[dict, dict, dict]:
     """Tokenizer(backend="device") over >= mb MB of multi-script text with
-    specials; returns the engine kernels' launch counts and their largest
-    errors against the plain versions on the engine's windows."""
+    specials; returns the engine kernels' launch counts, their largest
+    errors against the plain versions on the engine's windows, and K4's
+    timings at the engine's shapes."""
     from tokendagger_tpu_torch import (
         LLAMA4_PATTERN, EngineStats, HostEngine, Tokenizer,
     )
@@ -661,22 +787,24 @@ def run_engine(seed: int, mb: int, dev, *,
     grown_text = (plain_text[:at] + " " + digits.tobytes().decode() + " "
                   + plain_text[at:])
     window_choice(eng, host, grown_text)
-    errs = {}
+    errs, times = {}, {}
     if dev != "cpu":
         run_at = len(plain_text[:at].encode()) + 1
-        errs = engine_windows(eng, [
+        errs, times = engine_windows(eng, [
             ("4 MB", text.encode()[:ENGINE_WINDOW], ENGINE_WINDOW),
             ("16 MB grown", grown_text.encode()[run_at:run_at + MAX_WINDOW],
              MAX_WINDOW)], dev)
-    return launches, errs
+    return launches, errs, times
 
 
-def engine_windows(eng, windows, dev) -> dict:
+def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
     """Every kernel of the engine's window pipeline against its plain
     version, stage by stage as ``DeviceEngine.window_pipeline`` runs them,
     on (label, window bytes, scan size) windows, each cut at its safe
-    offset; then the per-stage device times of the first (CUDA events).
-    Returns the largest error of each kernel."""
+    offset; then the per-stage times of the first (CUDA events around
+    synchronized calls) and K4's times at its three shapes there (the
+    decode's compaction and finalize_host's two). Returns the largest
+    error of each kernel, and K4's timings by shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
     from tokendagger_tpu_torch.ops import pretokenize as PT
@@ -685,6 +813,7 @@ def engine_windows(eng, windows, dev) -> dict:
 
     errs = dict.fromkeys(("utf8_decode_block", "piece_starts_cp",
                           "compact_piece_keys", "compact_by_mask"), 0)
+    k4_times: dict = {}
     prof = eng._profile
     rows, mask = eng.tables.vhash8_rows, eng.tables.vhash8_mask
     for label, raw, N in windows:
@@ -718,7 +847,8 @@ def engine_windows(eng, windows, dev) -> dict:
         # K4 in finalize: the same function on the CPU runs K4's plain
         # version, and every output but the sums is K4's
         fin_args = (keys[0], keys[1], rank, keys[6])
-        got = finalize_host(*fin_args, trim, p_cap=p_cap)
+        with recorded_inputs() as fin_k4:
+            got = finalize_host(*fin_args, trim, p_cap=p_cap)
         want = finalize_host(*(a.cpu() for a in fin_args), trim, p_cap=p_cap)
         k4.append(max_abs_err([g.cpu() for g in got], list(want)))
         e["compact_by_mask"] = max(k4)
@@ -752,7 +882,19 @@ def engine_windows(eng, windows, dev) -> dict:
         )
         print(f"engine stage ms (one {label} window, {npc} pieces, p_cap "
               f"{p_cap}): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
-    return errs
+        shapes = [(f"engine decode (1, {N}) k 2", (arrs, is_lead, 0))]
+        shapes += [(f"engine finalize (1, {p_cap}) k {len(a[0])} fill {a[2]}",
+                    a) for key, a in fin_k4.items()
+                   if key[0] == "compact_by_mask"]
+        for at, (arrays, mm, fill) in shapes:
+            k, kept, P = len(arrays), int(mm.sum()), mm.numel()
+            k4_times[at] = timings(
+                lambda: CP.compact_by_mask(arrays, mm, fill=fill),
+                lambda: CP.compact_by_mask_plain(arrays, mm, fill=fill),
+                P + 4 * k * kept + 4 * k * P, P)
+            print(f"K4 compact_by_mask [{at}, {kept} kept]: "
+                  f"{show(k4_times[at])}")
+    return errs, k4_times
 
 
 def window_choice(eng, host, text: str) -> None:
@@ -988,46 +1130,38 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
         out = torch.zeros((B, N), dtype=torch.int32, device=dev)
         dense, route = inputs[key7][0], got[2]
         fetched = int((mask & (route < cap)).sum())
-        t5[name] = (
-            median_ms(lambda: CP.compact_record(arrays, mask, cap=cap,
-                                                fill=fill)),
-            median_ms(lambda: CP.compact_record_plain(arrays, mask, cap=cap,
-                                                      fill=fill), reps=5),
-            median_ms(lambda: torch.masked_select(stack, mask)),
-            *bound(B * N + 4 * len(arrays) * kept
-                   + 4 * len(arrays) * B * cap + 4 * B * N + 4 * B, B * N))
-        t7[name] = (
-            median_ms(lambda: CP.expand_route(dense, route, mask)),
-            median_ms(lambda: CP.expand_route_plain(dense, route, mask),
-                      reps=5),
-            median_ms(lambda: out.masked_scatter_(mask, src)),
-            *bound(4 * B * N + B * N + 4 * fetched + 4 * B * N, B * N))
+        t5[name] = timings(
+            lambda: CP.compact_record(arrays, mask, cap=cap, fill=fill),
+            lambda: CP.compact_record_plain(arrays, mask, cap=cap,
+                                            fill=fill),
+            B * N + 4 * len(arrays) * kept + 4 * len(arrays) * B * cap
+            + 4 * B * N + 4 * B, B * N)
+        t5[name].update(library(lambda: torch.masked_select(stack, mask),
+                                "masked_select (no route)"))
+        t7[name] = timings(
+            lambda: CP.expand_route(dense, route, mask),
+            lambda: CP.expand_route_plain(dense, route, mask),
+            4 * B * N + B * N + 4 * fetched + 4 * B * N, B * N)
+        t7[name].update(library(lambda: out.masked_scatter_(mask, src),
+                                "masked_scatter_"))
         for lab, t in (("K5+K6", t5[name]), ("K7+K8", t7[name])):
-            print(f"{lab} [{name}, {n_set} of {B * N} set]: {t[0]:.4f} ms "
-                  f"(plain {t[1]:.3f} ms, library {t[2]:.4f} ms, bound "
-                  f"{t[3]:.5f} ms by {t[4]})")
-    for nm, src_, err, t, lib, rep in (
+            print(f"{lab} [{name}, {n_set} of {B * N} set]: {show(t)}")
+    for nm, src_, err, t in (
             ("compact_record", "tokendagger_tpu/ops/compact_pallas.py:434 "
-             "(compact_tiles_masked) + :624 (degap_record)", err5, t5,
-             "masked_select", "csrc/route.cu"),
+             "(compact_tiles_masked) + :624 (degap_record)", err5, t5),
             ("expand_route", "tokendagger_tpu/ops/compact_pallas.py:670 "
-             "(regap_replay) + :728 (expand_tiles_replay)", err7, t7,
-             "masked_scatter_", "csrc/route.cu")):
-        ms, plain, libms, bms, bby = t["decode"]
+             "(regap_replay) + :728 (expand_tiles_replay)", err7, t7)):
         rows[nm] = dict(
-            name=nm, route="cuda", source=f"tokendagger_tpu_torch/{rep}",
-            replaces=src_, max_abs_err=err, ms=ms, plain_ms=plain,
-            bound_ms=bms, bound_by=bby, library_ms=libms,
-            ms_by_shape={k: v[0] for k, v in t.items()},
-            plain_ms_by_shape={k: v[1] for k, v in t.items()},
-            bound_ms_by_shape={k: v[3] for k, v in t.items()},
-            library=lib)
+            name=nm, route="cuda", source="tokendagger_tpu_torch/csrc/route.cu",
+            replaces=src_, max_abs_err=err, **t["decode"], **by_shape(t),
+            library_ms_by_shape={k: v["library_ms"] for k, v in t.items()})
 
     # ---- K1's class-word entry: the auto run's class words ----
     words, m, _ = inputs[k1[0]]
     werr = 0
     short = m.clone()
-    short[0] = 12345                      # a ragged length, garbage after
+    short[0] = 12345          # a ragged length inside the first segment
+    short[1] = 0              # an empty window
     for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
         err = 0
         for mm in (m, short):
@@ -1040,17 +1174,19 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
             raise AssertionError(f"K1 class-word entry {prof} differs")
         werr = max(werr, err)
     B, C = words.shape
-    ms = median_ms(lambda: BP.piece_starts_words(words, m))
-    plain = median_ms(lambda: BP.piece_starts_words_plain(words, m), reps=3)
     passes = BP.starts_passes("llama4", C)
-    bms, bby = bound(4 * B * C + B * C / 8 + 4 * B, passes * B * C / 32)
-    print(f"K1 piece_starts_words {(B, C)}: {ms:.4f} ms (plain {plain:.3f} "
-          f"ms, bound {bms:.5f} ms by {bby}; {passes} passes)")
+    spw = k1_blocks("words", B, C)
+    t = timings(lambda: BP.piece_starts_words(words, m),
+                lambda: BP.piece_starts_words_plain(words, m),
+                4 * B * C + B * C / 8 + 4 * B, passes * B * C / 32,
+                plain_reps=3)
+    print(f"K1 piece_starts_words {(B, C)}: {show(t)}; {passes} passes, "
+          f"{spw} blocks per window")
     rows["piece_starts_words"] = dict(
         name="piece_starts_words", route="cuda",
         source="tokendagger_tpu_torch/csrc/piece_starts.cu",
         replaces="tokendagger_tpu/ops/bitplane.py:1152", max_abs_err=werr,
-        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby, library_ms=None)
+        **t, library_ms=None, passes=passes, blocks_per_window=spw)
     return [rows["compact_record"], rows["expand_route"],
             rows["piece_starts_words"]]
 
@@ -1066,8 +1202,7 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
     ``recorded_inputs``), and on edge rows at the same shapes: random
     bytes for K9, a ragged char count for K1 (all four profiles), an
     empty window for K2+K3, an all-missed row for K4. Returns each
-    kernel's largest error, and its (ms, plain ms, bound ms, bound by)
-    by shape."""
+    kernel's largest error, and its timings by shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
     from tokendagger_tpu_torch.ops import pretokenize as PT
@@ -1091,14 +1226,15 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
             err = max(max_abs_err(PT.utf8_decode_block(x),
                                   PT.utf8_decode_block_plain(x))
                       for x in (d, edge))
-            t = (median_ms(lambda: PT.utf8_decode_block(d)),
-                 median_ms(lambda: PT.utf8_decode_block_plain(d), reps=5),
-                 *bound(9 * B * N, 20 * B * N))
+            t = timings(lambda: PT.utf8_decode_block(d),
+                        lambda: PT.utf8_decode_block_plain(d),
+                        9 * B * N, 20 * B * N)
         elif name == "piece_starts_cp":
             cp, m, _ = args
             B, C = shape = cp.shape
             short = m.clone()
-            short[0] = 12345               # a ragged length, garbage after
+            short[0] = 12345   # a ragged length inside the first segment
+            short[1] = 0       # an empty window
             err = 0
             for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
                 e = max(max_abs_err(
@@ -1109,10 +1245,11 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
                 print(f"K1 piece_starts_cp[{prof}] {(B, C)}: max_abs_err {e}")
                 err = max(err, e)
             passes = BP.starts_passes("llama4", C)
-            t = (median_ms(lambda: BP.piece_starts_chars(cp, m,
-                                                         packed_out=True)),
-                 median_ms(lambda: BP.piece_starts_chars_plain(cp, m), reps=3),
-                 *bound(4 * B * C + B * C / 8 + 4 * B, passes * B * C / 32))
+            t = timings(lambda: BP.piece_starts_chars(cp, m, packed_out=True),
+                        lambda: BP.piece_starts_chars_plain(cp, m),
+                        4 * B * C + B * C / 8 + 4 * B, passes * B * C / 32,
+                        plain_reps=3)
+            t["blocks_per_window"] = k1_blocks("codepoints", B, C)
         elif name == "compact_piece_keys":
             starts, d, nb, p_cap, packed = args
             B, N = d.shape
@@ -1127,32 +1264,31 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
             got = CP.compact_piece_keys(starts, d, nb, p_cap, packed=packed)
             key_bytes = int(torch.clamp(got[1], max=16).sum())
             flag_bytes = B * N / 8 if packed else B * N
-            t = (median_ms(lambda: CP.compact_piece_keys(starts, d, nb, p_cap,
-                                                         packed=packed)),
-                 median_ms(lambda: CP.compact_piece_keys_plain(
-                     starts, d, nb, p_cap, packed=packed), reps=5),
-                 *bound(flag_bytes + key_bytes + 8 * B + 24 * B * p_cap,
-                        B * N))
+            t = timings(lambda: CP.compact_piece_keys(starts, d, nb, p_cap,
+                                                      packed=packed),
+                        lambda: CP.compact_piece_keys_plain(
+                            starts, d, nb, p_cap, packed=packed),
+                        flag_bytes + key_bytes + 8 * B + 24 * B * p_cap,
+                        B * N)
         else:                                       # compact_by_mask
             arrays, mask, fill = args
             B, P = shape = mask.shape
             edge = mask.clone()
-            edge[0] = True
+            edge[0] = True     # an all-kept row
+            edge[1] = False    # an empty row
             err = max(max_abs_err(CP.compact_by_mask(arrays, mm, fill=fill),
                                   CP.compact_by_mask_plain(arrays, mm,
                                                            fill=fill))
                       for mm in (mask, edge))
             kept = int(mask.sum())
             k = len(arrays)
-            t = (median_ms(lambda: CP.compact_by_mask(arrays, mask,
-                                                      fill=fill)),
-                 median_ms(lambda: CP.compact_by_mask_plain(arrays, mask,
-                                                            fill=fill)),
-                 *bound(B * P + 4 * k * kept + 4 * k * B * P, B * P))
+            t = timings(lambda: CP.compact_by_mask(arrays, mask, fill=fill),
+                        lambda: CP.compact_by_mask_plain(arrays, mask,
+                                                         fill=fill),
+                        B * P + 4 * k * kept + 4 * k * B * P, B * P)
         at = f"resident {label} {tuple(shape)}"
-        print(f"{name} [{at}]: max_abs_err {err} (main-path inputs and an "
-              f"edge row); {t[0]:.4f} ms (plain {t[1]:.3f} ms, bound "
-              f"{t[2]:.5f} ms by {t[3]})")
+        print(f"{name} [{at}]: max_abs_err {err} (main-path inputs and "
+              f"edge rows); {show(t)}")
         if err:
             raise AssertionError(f"{name} differs from its plain version at "
                                  f"{at}")
@@ -1195,7 +1331,8 @@ def main() -> int:
     # several paths reports the sum of its launches as "launches", and
     # each path's count in "launches_by_path"
     stream = run_stream(args.seed, args.mb, "cuda")
-    engine, engine_errs = run_engine(args.seed, args.engine_mb, "cuda")
+    engine, engine_errs, engine_times = run_engine(args.seed,
+                                                   args.engine_mb, "cuda")
     resident, inputs = run_resident_phase(args.seed, "cuda")
     rows += check_resident_kernels(inputs["auto cap"], "cuda")
     resident_errs, resident_times = check_resident_shared(inputs, args.seed,
@@ -1209,14 +1346,16 @@ def main() -> int:
         r["launches_by_path"] = by_path
         r["max_abs_err"] = max(r["max_abs_err"], engine_errs.get(name, 0),
                                resident_errs.get(name, 0))
-        for at, t in resident_times.get(name, {}).items():
-            r.setdefault("ms_by_shape", {})[at] = t[0]
-            r.setdefault("plain_ms_by_shape", {})[at] = t[1]
-            r.setdefault("bound_ms_by_shape", {})[at] = t[2]
+        more = {**resident_times.get(name, {}),
+                **(engine_times if name == "compact_by_mask" else {})}
+        for k, v in by_shape(more).items():
+            r.setdefault(k, {}).update(v)
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library", "ms_by_shape",
-            "plain_ms_by_shape", "bound_ms_by_shape")
+            "launches_by_path", "max_abs_err", "ms", "call_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_call_ms",
+            "library", "passes", "blocks_per_window", "ms_by_shape",
+            "call_ms_by_shape", "plain_ms_by_shape", "bound_ms_by_shape",
+            "library_ms_by_shape", "blocks_per_window_by_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

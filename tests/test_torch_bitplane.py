@@ -4,6 +4,7 @@ Pallas kernel in interpret mode, its char-level derivations and
 scanner_ref, bit for bit."""
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import pytest
@@ -68,21 +69,26 @@ def test_plain_equals_scanner_ref(profile):
         assert not flags[b, m:].any()
 
 
-def _host_kernel(by, nb, profile):
+def _host_seg(entry, args, profile, S):
     from tokendagger_tpu_torch._build import host_library
 
     lib = host_library("piece_starts_host")
-    vp = ctypes.c_void_p
-    lib.td_piece_starts_host.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_int, vp, vp]
-    lib.td_piece_starts_host.restype = ctypes.c_int
-    B, n = by.shape
-    out = np.zeros((B, n // 32), np.uint32)
-    lut = TB.class_lut(profile)
-    passes = lib.td_piece_starts_host(
-        by.ctypes.data, nb.ctypes.data, B, n, TB._PROFILE_ID[profile],
-        lut.ctypes.data, out.ctypes.data)
+    fn = getattr(lib, f"td_piece_starts{entry}_seg_host")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    data, n = args[0], args[1]
+    B, N = data.shape
+    out = np.zeros((B, N // 32), np.uint32)
+    extra = {"": [TB.class_lut(profile).ctypes.data],
+             "_cp": [char_class_words(profile).ctypes.data], "_words": []}
+    fn.argtypes = [vp, vp, i, i, i] + [vp] * len(extra[entry]) + [i, vp]
+    fn.restype = i
+    passes = fn(data.ctypes.data, n.ctypes.data, B, N,
+                TB._PROFILE_ID[profile], *extra[entry], S, out.ctypes.data)
     return out.view(np.int32), passes
+
+
+def _host_kernel(by, nb, profile):
+    return _host_seg("", (by, nb), profile, 1)
 
 
 @pytest.mark.parametrize("profile", PROFILES)
@@ -213,20 +219,7 @@ def test_piece_starts_chars_equals_jax(two_level, profile):
 
 
 def _host_kernel_cp(cp, m, profile):
-    from tokendagger_tpu_torch._build import host_library
-
-    lib = host_library("piece_starts_host")
-    vp = ctypes.c_void_p
-    lib.td_piece_starts_cp_host.argtypes = [vp, vp, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_int, vp, vp]
-    lib.td_piece_starts_cp_host.restype = ctypes.c_int
-    B, n = cp.shape
-    out = np.zeros((B, n // 32), np.uint32)
-    table = char_class_words(profile)
-    passes = lib.td_piece_starts_cp_host(
-        cp.ctypes.data, m.ctypes.data, B, n, TB._PROFILE_ID[profile],
-        table.ctypes.data, out.ctypes.data)
-    return out.view(np.int32), passes
+    return _host_seg("_cp", (cp, m), profile, 1)
 
 
 @pytest.mark.parametrize("profile", PROFILES)
@@ -321,19 +314,7 @@ def test_piece_starts_chars_hot_equals_jax(two_level, profile):
 
 
 def _host_kernel_words(words, m, profile):
-    from tokendagger_tpu_torch._build import host_library
-
-    lib = host_library("piece_starts_host")
-    vp = ctypes.c_void_p
-    lib.td_piece_starts_words_host.argtypes = [vp, vp, ctypes.c_int,
-                                               ctypes.c_int, ctypes.c_int, vp]
-    lib.td_piece_starts_words_host.restype = ctypes.c_int
-    B, n = words.shape
-    out = np.zeros((B, n // 32), np.uint32)
-    passes = lib.td_piece_starts_words_host(
-        words.ctypes.data, m.ctypes.data, B, n, TB._PROFILE_ID[profile],
-        out.ctypes.data)
-    return out.view(np.int32), passes
+    return _host_seg("_words", (words, m), profile, 1)
 
 
 @pytest.mark.parametrize("profile", PROFILES)
@@ -357,6 +338,58 @@ def test_kernel_derivation_host_build_words_equals_plain(profile):
     cp_entry = TB.piece_starts_chars(torch.from_numpy(cp), torch.from_numpy(m),
                                      profile=profile, packed_out=True)
     assert np.array_equal(cp_entry.numpy(), got)
+
+
+# ---------------------------------------------------------------------------
+# The card's segmented form: each window as S segments of words, each scan
+# composed from per-segment maps (the host build's SegOps)
+# ---------------------------------------------------------------------------
+
+SEG_N = 1 << 15
+# lengths: ragged, inside the first segment for every S below, empty, and
+# ending exactly on segment boundaries of S = 2, 3, 7, 16 (C = 1024 words:
+# words 512, 341, 146, 64, 438)
+SEG_LENGTHS = [SEG_N - 100, 1000, 0, 16384, 10912, 4672, 2048, 14016]
+
+
+@lru_cache(maxsize=None)
+def _seg_inputs(profile):
+    """Bytes, codepoints and class words of the same windows (garbage
+    beyond each length), and each entry's plain result."""
+    rng = np.random.default_rng(12)
+    by, nb = stage([ascii_text(rng, n) for n in SEG_LENGTHS], SEG_N, rng)
+    cp = rng.integers(0, 0x110000, by.shape).astype(np.int32)
+    for b, n in enumerate(SEG_LENGTHS):
+        c = np.array([ord(ch) for ch in multiscript_text(rng, n)[:n]],
+                     np.int32)
+        cp[b, : len(c)] = c
+    m = np.array([min(n, SEG_N) for n in SEG_LENGTHS], np.int32)
+    words = char_class_words(profile)[cp].astype(np.int32)
+    for b in range(len(m)):
+        words[b, m[b]:] = rng.integers(0, 1 << 16, SEG_N - m[b])
+    plain = (_plain(by, nb, profile).numpy(),
+             TB.piece_starts_chars(torch.from_numpy(cp), torch.from_numpy(m),
+                                   profile=profile, packed_out=True).numpy(),
+             TB.piece_starts_words(torch.from_numpy(words),
+                                   torch.from_numpy(m),
+                                   profile=profile).numpy())
+    return (by, nb, cp, m, words), plain
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("profile", PROFILES)
+def test_kernel_derivation_segmented_equals_plain(profile, S):
+    """All three entries run as the card runs them, each window split into
+    S segments (S need not divide the window's 1024 words), equal the
+    plain versions, forward and reverse scans alike; lengths end inside
+    the first segment and on segment boundaries."""
+    (by, nb, cp, m, words), plain = _seg_inputs(profile)
+    for entry, args, want in (("", (by, nb), plain[0]),
+                              ("_cp", (cp, m), plain[1]),
+                              ("_words", (words, m), plain[2])):
+        got, passes = _host_seg(entry, args, profile, S)
+        assert passes > 0, (entry, "kernel scratch planes exhausted")
+        assert np.array_equal(want, got), (entry, S)
 
 
 def test_piece_starts_words_checks_inputs():

@@ -45,6 +45,39 @@ def test_k1_equals_plain(dev, profile, n):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("profile", PROFILES)
+def test_k1_segmented_entries_equal_plain(dev, profile, B):
+    """All three K1 entries spread each window over many blocks; B = 1 and
+    8 windows of 64 K chars, with an empty window, lengths that are not a
+    multiple of 32 and one that ends inside the first segment."""
+    n = 1 << 16
+    spw = BP.starts_blocks_per_window("bytes", B, n)
+    assert spw > 1 and spw * B >= min(132, 16 * B)
+    first = 32 * (n // 32 // spw) - 5            # inside segment 0
+    lengths = [n - 77, 0, first, 12345, n, 1000, 33, n // 2]
+    rng = np.random.default_rng(B)
+    by, nb = stage([ascii_text(rng, k) for k in lengths], n, rng)
+    cp = rng.integers(0, 0x110000, by.shape).astype(np.int32)
+    for b, k in enumerate(lengths):
+        cp[b, :k] = [ord(c) for c in multiscript_text(rng, k)[:k]]
+    m = np.array(lengths, np.int32)
+    words = BP.char_class_words(profile)[cp].astype(np.int32)
+    entries = [
+        (BP.piece_starts_bits, BP.piece_starts_bits_plain, by, nb),
+        (lambda x, y, profile: BP.piece_starts_chars(
+            x, y, profile=profile, packed_out=True),
+         BP.piece_starts_chars_plain, cp, m),
+        (BP.piece_starts_words, BP.piece_starts_words_plain, words, m)]
+    for fn, plain, x, y in entries:
+        for r in range(0, len(lengths), B):      # one launch per B windows
+            xs = torch.from_numpy(x[r:r + B]).to(dev)
+            ys = torch.from_numpy(y[r:r + B]).to(dev)
+            got = fn(xs, ys, profile=profile)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain(xs, ys, profile=profile)), (fn, r)
+
+
 @pytest.mark.parametrize("packed", [False, True])
 def test_k2k3_equals_plain(dev, packed):
     n = 1 << 15
@@ -60,19 +93,26 @@ def test_k2k3_equals_plain(dev, packed):
 
 
 @pytest.mark.parametrize("k", [1, 2, 8])
-@pytest.mark.parametrize("P", [100, 8192, 20001])
+@pytest.mark.parametrize("P", [100, 8192, 20001, 300001])
 def test_k4_equals_plain(dev, k, P):
+    """Rows: random 30%, empty, all kept, random 2%; P not a multiple of
+    32 (rows not 16-byte aligned) and P over many tiles (look-back past
+    32 tiles)."""
     g = torch.Generator(device=dev).manual_seed(P + k)
-    arrays = [torch.randint(-2**31, 2**31 - 1, (3, P), generator=g,
+    arrays = [torch.randint(-2**31, 2**31 - 1, (4, P), generator=g,
                             device=dev, dtype=torch.int32) for _ in range(k)]
-    mask = torch.rand((3, P), generator=g, device=dev) < 0.3
+    mask = torch.rand((4, P), generator=g, device=dev) < 0.3
     mask[1] = False
     mask[2] = True
+    mask[3] = torch.rand((P,), generator=g, device=dev) < 0.02
     for fill in (0, -1):
-        got = CP.compact_by_mask(arrays, mask, fill=fill)
-        want = CP.compact_by_mask_plain(arrays, mask, fill=fill)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+        for _ in range(2):             # a second launch on the same statuses
+            got = CP.compact_by_mask(arrays, mask, fill=fill)
+            want = CP.compact_by_mask_plain(arrays, mask, fill=fill)
+            torch.cuda.synchronize()
+            assert len(got) == k
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
 
 
 def test_stream_card_equals_cpu(dev):

@@ -9,17 +9,26 @@
 // On the TPU the compaction was a displacement butterfly inside VMEM tiles,
 // written at row-quantized offsets and degapped by a second kernel, because
 // Mosaic had no usable scatter or in-kernel prefix sum. Here a compaction is
-// what it is on any GPU: a count pass (one block per 8192 elements, one
-// popcount per 32) and a scatter pass (the same blocks add the counts of
+// what it is on any GPU. K2+K3: a count pass (one block per 8192 elements,
+// one popcount per 32) and a scatter pass (the same blocks add the counts of
 // the tiles before them, scan their threads' counts, and write each kept
 // element at its rank). Output is dense at once, so there is no gap to
 // remove. The piece geometry (length = next start - start, the last live
 // piece ending at nbytes) and the four key words (the piece's first 16
 // bytes, masked to its length) are one more pass over the p_cap slots.
+// K4: one pass (mask_compact_kernel): each block ranks its tile and finds
+// the count before it by decoupled look-back over per-tile status words,
+// so every mask byte is read once, in 16-byte loads, and every store of a
+// warp lands on consecutive slots. Measured by chip_smoke.py (H100 80GB
+// HBM3, 700 W): 0.031 ms at (8, 349,568) with k = 2, against a 0.008 ms
+// bound and masked_select's 0.057 ms; 0.055 ms at (1, 4,194,304), bound
+// 0.020 ms. At these sizes every block's chain of latencies (fill, fence,
+// status, look-back, the kept loads) outweighs its bytes.
 //
 // What bounds them on the H100: bytes. K2+K3 read the packed flags (N/8
 // bytes per window) and write 6 int32 per slot (24 * p_cap bytes); K4
-// reads and writes each kept value once. Their work per byte is a few
+// reads the mask and each kept value once and writes every output slot
+// (kept slots twice: the fill first). Their work per byte is a few
 // integer operations, far below the card's ratio of operations to bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,54 +177,151 @@ piece_keys_kernel(const uint8_t* data, const int32_t* nbytes, int N,
   k3[o] = (int32_t)key[3];
 }
 
-struct Arrays {
-  const int32_t* in[kMaxArrays];
-  int32_t* out[kMaxArrays];
+// ---- K4 ----
+
+constexpr int kMaskThreads = 256;
+constexpr int kMaskVec = 16;                        // mask bytes per thread
+constexpr int kMaskTile = kMaskThreads * kMaskVec;  // elements per block
+constexpr uint32_t kAgg = 1u, kIncl = 2u;           // tile status flags
+
+struct Ins {
+  const int32_t* p[kMaxArrays];
 };
 
-// Keep flags of elements 32u .. 32u+31 of a (P,) bool row.
-__device__ __forceinline__ uint32_t keep_bits(const uint8_t* mask, int P,
-                                              int u) {
-  uint32_t m = 0u;
-  for (int e = 0; e < 32; ++e) {
-    const int i = 32 * u + e;
-    if (i < P && mask[i]) m |= 1u << e;
-  }
-  return m;
+// Bit i set where byte i of x is nonzero (i < 4).
+__device__ __forceinline__ uint32_t nonzero4(uint32_t x) {
+  x |= x >> 4;
+  x |= x >> 2;
+  x |= x >> 1;
+  return (((x & 0x01010101u) * 0x01020408u) >> 24) & 0xFu;
 }
 
-__global__ void __launch_bounds__(kThreads)
-mask_count_kernel(const uint8_t* mask, int P, int T, int32_t* counts) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int u = t * kThreads + threadIdx.x;
-  const int c = __popc(keep_bits(mask + (size_t)b * P, P, u));
-  int total;
-  block_excl_scan(c, &total);
-  if (threadIdx.x == 0) counts[b * T + t] = total;
+// A tile's status: tag (epoch << 2 | flag) above, its count below.
+__device__ __forceinline__ void put_status(unsigned long long* s,
+                                           uint32_t tag, int v) {
+  *(volatile unsigned long long*)s =
+      (unsigned long long)tag << 32 | (uint32_t)v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-mask_scatter_kernel(const uint8_t* mask, int P, int T, const int32_t* counts,
-                    Arrays arr, int k, int32_t fill) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int base = block_sum_prefix(counts + b * T, t);
-  const int kept = base + block_sum_prefix(counts + b * T + t, T - t);
-  const int u = t * kThreads + threadIdx.x;
-  uint32_t m = keep_bits(mask + (size_t)b * P, P, u);
-  int total;
-  int pos = base + block_excl_scan(__popc(m), &total);
+// One block per tile of kMaskTile elements of a row, tiles of a row in
+// block order (a block waits only on blocks launched before it):
+//  1. fill every output slot of the tile's own range; the fence and the
+//     status store below publish these stores before any block can learn
+//     where its kept elements go, so kept values (which always move left,
+//     into this tile's range or an earlier one) overwrite them afterwards;
+//  2. each thread reads 16 consecutive mask bytes (one 16-byte load where
+//     the row allows it) and counts them; a warp scan and a block scan
+//     rank the threads, and the tile's count is published (aggregate);
+//  3. the first warp looks back over the statuses of the tiles before it,
+//     32 at a time, summing aggregates up to the nearest inclusive count,
+//     and publishes its own inclusive count (decoupled look-back);
+//  4. each warp walks its 512 elements 32 at a time, lane l on element
+//     32j + l: a ballot of the keep bits, and each kept element goes to
+//     base + popc(ballot & lanes below), so consecutive lanes read
+//     consecutive inputs and write consecutive slots.
+__global__ void __launch_bounds__(kMaskThreads)
+mask_compact_kernel(const uint8_t* mask, int P, int T, Ins in, int k,
+                    int32_t fill, int32_t* out, long long plane,
+                    unsigned long long* status, uint32_t epoch) {
+  __shared__ int s_warp[kMaskThreads / 32];
+  __shared__ int s_base;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = kMaskThreads / 32;
+  const int b = blockIdx.x / T, t = blockIdx.x - b * T;
   const size_t row = (size_t)b * P;
-  while (m) {
-    const int i = 32 * u + __ffs(m) - 1;
-    for (int a = 0; a < k; ++a) arr.out[a][row + pos] = arr.in[a][row + i];
-    ++pos;
-    m &= m - 1u;
+  const int t0 = t * kMaskTile;
+  const int tn = min(kMaskTile, P - t0);
+
+#pragma unroll
+  for (int a = 0; a < kMaxArrays; ++a) {
+    if (a < k) {
+      int32_t* o = out + a * plane + row + t0;
+      for (int i = tid; i < tn; i += kMaskThreads) o[i] = fill;
+    }
   }
-  // slots past the kept count, within this block's slice of the output
-  for (int e = 0; e < 32; ++e) {
-    const int i = 32 * u + e;
-    if (i < P && i >= kept)
-      for (int a = 0; a < k; ++a) arr.out[a][row + i] = fill;
+
+  const int e0 = t0 + kMaskVec * tid;
+  const uint8_t* mrow = mask + row;
+  uint32_t bits = 0u;
+  if (e0 + kMaskVec <= P && ((uintptr_t)(mrow + e0) & 15u) == 0u) {
+    const uint4 v = *(const uint4*)(mrow + e0);
+    bits = nonzero4(v.x) | nonzero4(v.y) << 4 | nonzero4(v.z) << 8 |
+           nonzero4(v.w) << 12;
+  } else {
+    for (int j = 0; j < kMaskVec && e0 + j < P; ++j)
+      bits |= (mrow[e0 + j] != 0 ? 1u : 0u) << j;
+  }
+  const int c = __popc(bits);
+  int x = c;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __threadfence();
+  __syncthreads();
+
+  if (warp == 0) {
+    int wv = lane < nw ? s_warp[lane] : 0;
+    int ws = wv;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, ws, d);
+      if (lane >= d) ws += y;
+    }
+    const int total = __shfl_sync(0xFFFFFFFFu, ws, nw - 1);
+    if (lane < nw) s_warp[lane] = ws - wv;
+    const uint32_t tag_agg = epoch << 2 | kAgg, tag_incl = epoch << 2 | kIncl;
+    unsigned long long* st = status + (size_t)b * T;
+    int excl = 0;
+    if (t > 0) {
+      if (lane == 0) put_status(st + t, tag_agg, total);
+      for (int pred = t - 1;; pred -= 32) {
+        const int i = pred - lane;
+        unsigned long long s = 0ull;
+        uint32_t tag = tag_incl;
+        if (i >= 0) {
+          do {
+            s = *(volatile unsigned long long*)(st + i);
+            tag = (uint32_t)(s >> 32);
+          } while (tag != tag_agg && tag != tag_incl);
+        }
+        const uint32_t incl = __ballot_sync(0xFFFFFFFFu, tag == tag_incl);
+        const int first = incl ? __ffs(incl) - 1 : 31;
+        int v = lane <= first && i >= 0 ? (int)(uint32_t)s : 0;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+          v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
+        excl += v;
+        if (incl) break;
+      }
+    }
+    if (lane == 0) {
+      put_status(st + t, tag_incl, excl + total);
+      s_base = excl;
+    }
+    __threadfence();
+  }
+  __syncthreads();
+
+  int pos = s_base + s_warp[warp];  // the warp's first slot
+  const int ew = t0 + warp * 32 * kMaskVec;
+  const uint32_t below = (1u << lane) - 1u;
+#pragma unroll 4
+  for (int j = 0; j < kMaskVec; ++j) {
+    const uint32_t m16 =
+        __shfl_sync(0xFFFFFFFFu, bits, 2 * j + (lane >> 4));
+    const bool keep = (m16 >> (lane & 15)) & 1u;
+    const uint32_t bal = __ballot_sync(0xFFFFFFFFu, keep);
+    if (keep) {
+      const size_t dst = row + pos + __popc(bal & below);
+      const size_t src = row + ew + 32 * j + lane;
+#pragma unroll
+      for (int a = 0; a < kMaxArrays; ++a)
+        if (a < k) out[a * plane + dst] = in.p[a][src];
+    }
+    pos += __popc(bal);
   }
 }
 
@@ -249,23 +355,34 @@ int td_compact_piece_keys(const void* flags, int packed, const void* data,
   return (int)cudaGetLastError();
 }
 
-// mask (B, P) uint8; ins/outs: k pointers to (B, P) int32 (k <= 8);
-// counts scratch (B, td_compact_tiles(P)) int32.
-int td_compact_by_mask(const void* mask, int B, int P, void* const* ins,
-                       void* const* outs, int k, int fill, void* counts,
-                       void* stream) {
-  if (k < 1 || k > kMaxArrays) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int T = td_compact_tiles(P);
-  Arrays arr;
-  for (int a = 0; a < kMaxArrays; ++a) {
-    arr.in[a] = a < k ? (const int32_t*)ins[a] : nullptr;
-    arr.out[a] = a < k ? (int32_t*)outs[a] : nullptr;
-  }
-  mask_count_kernel<<<dim3(T, B), kThreads, 0, s>>>(
-      (const uint8_t*)mask, P, T, (int32_t*)counts);
-  mask_scatter_kernel<<<dim3(T, B), kThreads, 0, s>>>(
-      (const uint8_t*)mask, P, T, (const int32_t*)counts, arr, k, fill);
+// Status words (64-bit) td_compact_by_mask needs for a (B, P) mask.
+long long td_compact_status_words(int B, int P) {
+  return (long long)B * ((P + kMaskTile - 1) / kMaskTile);
+}
+
+// mask (B, P) uint8 (nonzero: keep); in0..in7 the k (B, P) int32 inputs
+// (k <= 8, the rest unused); out (k, B, P) int32. status: at least
+// td_compact_status_words(B, P) words that only this kernel writes, zeroed
+// before their first use; epoch in [1, 2^30), unlike the epoch of the
+// launch before on the same words (a status of another epoch reads as not
+// yet published, so nothing is cleared between launches). Launches that
+// share `status` must not overlap: give each stream its own. One launch.
+int td_compact_by_mask(const void* mask, int B, int P, const void* in0,
+                       const void* in1, const void* in2, const void* in3,
+                       const void* in4, const void* in5, const void* in6,
+                       const void* in7, int k, int fill, void* out,
+                       void* status, unsigned epoch, void* stream) {
+  if (k < 1 || k > kMaxArrays || epoch == 0u || epoch >= (1u << 30))
+    return (int)cudaErrorInvalidValue;
+  const Ins in{{(const int32_t*)in0, (const int32_t*)in1,
+                (const int32_t*)in2, (const int32_t*)in3,
+                (const int32_t*)in4, (const int32_t*)in5,
+                (const int32_t*)in6, (const int32_t*)in7}};
+  const int T = (P + kMaskTile - 1) / kMaskTile;
+  mask_compact_kernel<<<(unsigned)((long long)B * T), kMaskThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, P, T, in, k, fill, (int32_t*)out,
+      (long long)B * P, (unsigned long long*)status, epoch);
   return (int)cudaGetLastError();
 }
 

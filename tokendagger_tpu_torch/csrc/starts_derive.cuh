@@ -3,10 +3,13 @@
 // The word-space derivation of the JAX package's ops/bitplane.py
 // (derive_starts_words, _derive_cl100k_words, _derive_gpt2_words), written
 // once against an abstract "ops" backend so the same source runs
-//   * on the card, one thread block per window (piece_starts.cu), and
-//   * on the host, sequentially (piece_starts_host.cpp), which the CPU
-//     tests build with the system C++ compiler to hold this transcription
-//     against the plain torch version without a card.
+//   * on the card, each window split into segments of words, one thread
+//     block per segment, with a barrier after every pass
+//     (piece_starts.cu), and
+//   * on the host, the same segments one after another
+//     (piece_starts_host.cpp), which the CPU tests build with the system
+//     C++ compiler to hold this transcription against the plain torch
+//     version without a card.
 //
 // Layout: char-major. Word w of a plane holds chars 32w .. 32w+31, bit j =
 // char 32w+j. A shift by k chars is a funnel shift of two neighbouring
@@ -26,7 +29,9 @@
 //       state 0 before char 0 (rev: backward from state 0 after the last
 //       char; out then holds the state "after" in scan order).
 // Every pass reads only planes written by earlier passes: no pass writes a
-// plane it reads at another word.
+// plane it reads at another word. A backend may therefore split a pass's
+// words among workers that meet at a barrier after it, and split a scan
+// into per-segment maps composed in scan order.
 #pragma once
 #include <stddef.h>
 #include <stdint.h>

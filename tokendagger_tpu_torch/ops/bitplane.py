@@ -712,12 +712,24 @@ def _k1_library():
     lib.td_piece_starts_scratch_words.restype = ctypes.c_longlong
     lib.td_piece_starts_passes.argtypes = [i, i]
     lib.td_piece_starts_passes.restype = i
+    lib.td_piece_starts_blocks.argtypes = [i, i, i]
+    lib.td_piece_starts_blocks.restype = i
     return lib
 
 
 def starts_passes(profile: str, n: int) -> int:
     """Passes K1 makes over a window's planes (data independent)."""
     return _k1_library().td_piece_starts_passes(_PROFILE_ID[profile], n)
+
+
+_K1_ENTRIES = {"bytes": 0, "codepoints": 1, "words": 2}
+
+
+def starts_blocks_per_window(entry: str, batch: int, n: int) -> int:
+    """Thread blocks (segments) per window K1's ``entry`` ("bytes",
+    "codepoints" or "words") launches for ``batch`` windows of ``n`` chars
+    on the current card; 0 if the launch would be refused."""
+    return _k1_library().td_piece_starts_blocks(_K1_ENTRIES[entry], batch, n)
 
 
 def _launch_k1(by: torch.Tensor, nbytes: torch.Tensor, profile: str):

@@ -134,8 +134,10 @@ def _library():
     lib.td_compact_tiles.restype = i
     lib.td_compact_piece_keys.argtypes = [vp, i, vp, vp, i, i, i] + [vp] * 9
     lib.td_compact_piece_keys.restype = i
-    lib.td_compact_by_mask.argtypes = [
-        vp, i, i, ctypes.POINTER(vp), ctypes.POINTER(vp), i, i, vp, vp]
+    lib.td_compact_status_words.argtypes = [i, i]
+    lib.td_compact_status_words.restype = ctypes.c_longlong
+    lib.td_compact_by_mask.argtypes = (
+        [vp, i, i] + [vp] * 8 + [i, i, vp, vp, ctypes.c_uint, vp])
     lib.td_compact_by_mask.restype = i
     return lib
 
@@ -185,21 +187,41 @@ def _launch_k2k3(starts, data, nbytes, p_cap: int, packed: bool):
     return (*outs, n_pieces)
 
 
+# K4's tile status words, per (device, stream): [int64 tensor, epoch of
+# the last launch]. Only K4 writes them and each launch tags its statuses
+# with a new epoch, so they are zeroed once, when allocated, and never
+# cleared. Launches on one stream run one after another; a launch on
+# another stream gets its own words, since one whose statuses another
+# overwrote would wait for them forever.
+_K4_STATUS: dict = {}
+
+
+def _k4_status(key, words: int):
+    st = _K4_STATUS.get(key)
+    if st is None or st[0].numel() < words:
+        st = _K4_STATUS[key] = [
+            torch.zeros(max(words, 4096), dtype=torch.int64, device=key[0]),
+            0]
+    st[1] = st[1] % ((1 << 30) - 1) + 1
+    return st
+
+
 def _launch_k4(arrays, mask, fill: int):
     lib = _library()
     B, P = mask.shape
     dev = mask.device
-    counts = torch.empty((B, lib.td_compact_tiles(P)), dtype=torch.int32,
-                         device=dev)
-    outs = [torch.empty_like(a) for a in arrays]
     k = len(arrays)
-    ins_p = (ctypes.c_void_p * k)(*[a.data_ptr() for a in arrays])
-    outs_p = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
-    rc = lib.td_compact_by_mask(mask.data_ptr(), B, P, ins_p, outs_p, k,
-                                fill, counts.data_ptr(), _stream(dev))
+    stream = _stream(dev)
+    out = torch.empty((k, B, P), dtype=torch.int32, device=dev)
+    status, epoch = _k4_status((dev, stream),
+                               lib.td_compact_status_words(B, P))
+    ins = [a.data_ptr() for a in arrays] + [None] * (8 - k)
+    rc = lib.td_compact_by_mask(mask.data_ptr(), B, P, *ins, k, fill,
+                                out.data_ptr(), status.data_ptr(), epoch,
+                                stream)
     _check(rc, "compact_by_mask")
     compact_by_mask.launches += 1
-    return outs
+    return list(out.unbind(0))
 
 
 def _launch_k5k6(arrays, mask, cap: int, fill: int):
