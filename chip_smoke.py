@@ -17,6 +17,8 @@
    (``masked_select``, ``masked_scatter_``) gets its device time from a
    torch.profiler trace, since it synchronizes on the host. K4 must run
    one kernel per call; K1 must spread each window over many blocks.
+   Then K1's byte entry on 300 windows of 1 KB, more than the card holds
+   its blocks (so they run in groups), against its plain version.
 3. Holds the kernels of the public API's engine against their plain
    versions at the engine's shapes: the UTF-8 decode (K9) on 4 MB and
    16 MB windows of seeded multi-script text and invalid UTF-8, and K1's
@@ -26,8 +28,9 @@
    After step 5's run, every kernel of the engine's window pipeline (K9,
    K4 in the decode's compaction, K1, K2+K3, K4 in finalize) is held
    against its plain version stage by stage on one 4 MB window and on
-   one grown 16 MB window of that run's texts, and K4 is timed at the
-   decode's and finalize_host's shapes there.
+   one grown 16 MB window of that run's texts, and K2+K3 (on the 4 MB
+   window's byte flags) and K4 (at the decode's and finalize_host's
+   shapes) are timed there.
 4. Drives ResidentStream on the card over at least 16 MB with a seeded
    200,000-rank stand-in vocabulary, checks the first batch's ids against
    the host engine, no host fallback, and one launch of each kernel per
@@ -57,10 +60,11 @@
    entry (all four profiles) against their plain versions on the inputs
    the auto run gave them at each of the path's shapes (the decode, the
    hot-codepoint classes, the hot-piece probe), and on the same shapes
-   with an empty row, an all-kept (overflowing) row and a skewed row;
-   and K9, K1's codepoint entry (all four profiles), K2+K3 and K4 on the
-   inputs each run gave them, with an edge row each. Every kernel's
-   times at the path's shapes join its row of the kernels line.
+   with an empty row, an all-kept (overflowing) row and a skewed row
+   (K5+K6 must run one kernel per call); and K9, K1's codepoint entry
+   (all four profiles), K2+K3 and K4 on the inputs each run gave them,
+   with an edge row each. Every kernel's times at the path's shapes join
+   its row of the kernels line.
 7. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
@@ -270,13 +274,18 @@ def device_ms(fn, reps: int = 20, runs: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def traced(fn, reps: int = 10) -> tuple[float, float]:
-    """Device time and kernel count of one call of ``fn`` from a short
-    torch.profiler trace of ``reps`` calls: the union of their kernel,
-    copy and memset intervals, and their kernels, each over ``reps``. For
-    library calls that synchronize on the host (``masked_select`` must
-    learn its output size), where events around a run of calls would
-    count the host's gaps."""
+def traced(fn, reps: int = 10) -> tuple[float, float, float]:
+    """Device time, kernel events and kernel launches of one call of
+    ``fn`` from a short torch.profiler trace of ``reps`` calls: the union
+    of their kernel, copy and memset intervals, their kernel events and
+    their kernel-launch API calls (cudaLaunchKernel and kin), each over
+    ``reps``; the device time is None when the trace holds no kernel
+    event. For library calls that synchronize on the host
+    (``masked_select`` must learn its output size), where events around a
+    run of calls would count the host's gaps. Late in this script a trace
+    can lose kernel events (0 to 5 of 10 K5+K6 kernels, where a fresh
+    process counts 10), so a kernel count is read from the launches."""
+    import glob
     import tempfile
 
     from tokendagger_tpu_torch.utils.profiling import (
@@ -291,9 +300,16 @@ def traced(fn, reps: int = 10) -> tuple[float, float]:
                 fn()
             torch.cuda.synchronize()
         busy_us, n = device_busy_us(d)
-    if not n:
-        raise AssertionError("the profiler trace holds no kernels")
-    return busy_us / 1e3 / reps, n / reps
+        events = []
+        for path in glob.glob(f"{d}/*.pt.trace.json"):
+            with open(path) as f:
+                events += json.load(f).get("traceEvents", [])
+    launches = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "Launch" in e.get("name", "")
+                   and "Kernel" in e.get("name", "") for e in events)
+    if not launches:
+        raise AssertionError("the profiler trace holds no kernel launch")
+    return (busy_us / 1e3 / reps if n else None), n / reps, launches / reps
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -322,9 +338,12 @@ def show(t: dict) -> str:
     s = (f"{t['ms']:.4f} ms on the device ({t['call_ms']:.4f} ms per "
          f"synchronized call; plain {t['plain_ms']:.3f} ms, bound "
          f"{t['bound_ms']:.5f} ms by {t['bound_by']})")
-    if t.get("library_ms") is not None:
-        s += (f"; {t['library']}: {t['library_ms']:.4f} ms on the device, "
-              f"{t['library_call_ms']:.4f} ms per call")
+    if "library" in t:
+        lib_ms = t["library_ms"]
+        s += (f"; {t['library']}: "
+              + ("not measured (no kernel event in its trace)"
+                 if lib_ms is None else f"{lib_ms:.4f} ms on the device")
+              + f", {t['library_call_ms']:.4f} ms per call")
     return s
 
 
@@ -430,12 +449,13 @@ def check_kernels(seed: int, dev) -> list[dict]:
     k_got = CP.compact_by_mask([sb, pl], miss)
     k_want = CP.compact_by_mask_plain([sb, pl], miss)
     err = k4_err = max_abs_err(k_got, k_want)
-    n_kern = traced(lambda: CP.compact_by_mask([sb, pl], miss))[1]
-    print(f"K4 compact_by_mask: max_abs_err {err}; {n_kern} kernel per call")
+    _, n_ev, n_kern = traced(lambda: CP.compact_by_mask([sb, pl], miss))
+    print(f"K4 compact_by_mask: max_abs_err {err}; {n_kern} kernel launch "
+          f"per call ({n_ev} kernel events)")
     if err:
         raise AssertionError("K4 differs from its plain version")
     if n_kern != 1:
-        raise AssertionError(f"K4 ran {n_kern} kernels in one call")
+        raise AssertionError(f"K4 launched {n_kern} kernels in one call")
     both = torch.stack([sb, pl])
     kept = int(miss.sum())
     t = timings(lambda: CP.compact_by_mask([sb, pl], miss),
@@ -450,6 +470,40 @@ def check_kernels(seed: int, dev) -> list[dict]:
         replaces="tokendagger_tpu/ops/compact_pallas.py:830",
         max_abs_err=k4_err, **t))
     return rows
+
+
+def check_k1_groups(seed: int, dev) -> tuple[int, dict]:
+    """K1's byte entry on more windows than the card holds its blocks
+    (300 of 1024 bytes: groups of one block per window) against its plain
+    version, all four profiles; returns the largest error and the
+    timings at that shape."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+
+    B, N = 300, 1024
+    rng = np.random.default_rng(seed + 300)
+    by = torch.from_numpy(rng.integers(0, 128, (B, N)).astype(np.uint8))
+    text = np.frombuffer(corpus(B * N, seed + 12).encode(), np.uint8).copy()
+    by[::2] = torch.from_numpy(text[: (B + 1) // 2 * N].reshape(-1, N))
+    nb = torch.from_numpy(rng.integers(0, N + 1, B).astype(np.int32))
+    nb[:3] = torch.tensor([0, N, 33])
+    by, nb = by.to(dev), nb.to(dev)
+    err = 0
+    for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+        err = max(err, max_abs_err(
+            [BP.piece_starts_bits(by, nb, profile=prof)],
+            [BP.piece_starts_bits_plain(by, nb, profile=prof)]))
+    spw = BP.starts_blocks_per_window("bytes", B, N)
+    passes = BP.starts_passes("llama4", N)
+    t = timings(lambda: BP.piece_starts_bits(by, nb),
+                lambda: BP.piece_starts_bits_plain(by, nb),
+                B * N + B * N / 8 + 4 * B, passes * B * N / 32, plain_reps=3)
+    t["blocks_per_window"] = spw
+    print(f"K1 piece_starts {(B, N)} (more windows than resident blocks): "
+          f"max_abs_err {err} over four profiles; {spw} blocks per window; "
+          f"{show(t)}")
+    if err or spw < 1:
+        raise AssertionError(f"K1 at {(B, N)} differs from its plain version")
+    return err, {f"{B} windows {(B, N)}": t}
 
 
 def utf8_windows(seed: int, n: int, dev) -> list[torch.Tensor]:
@@ -699,8 +753,8 @@ def run_engine(seed: int, mb: int, dev, *,
                n_ranks=200_000) -> tuple[dict, dict, dict]:
     """Tokenizer(backend="device") over >= mb MB of multi-script text with
     specials; returns the engine kernels' launch counts, their largest
-    errors against the plain versions on the engine's windows, and K4's
-    timings at the engine's shapes."""
+    errors against the plain versions on the engine's windows, and the
+    timings of K2+K3 and K4 at the engine's shapes."""
     from tokendagger_tpu_torch import (
         LLAMA4_PATTERN, EngineStats, HostEngine, Tokenizer,
     )
@@ -802,9 +856,10 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
     version, stage by stage as ``DeviceEngine.window_pipeline`` runs them,
     on (label, window bytes, scan size) windows, each cut at its safe
     offset; then the per-stage times of the first (CUDA events around
-    synchronized calls) and K4's times at its three shapes there (the
-    decode's compaction and finalize_host's two). Returns the largest
-    error of each kernel, and K4's timings by shape."""
+    synchronized calls), K2+K3's times on its byte flags and K4's at its
+    three shapes there (the decode's compaction and finalize_host's two).
+    Returns the largest error of each kernel, and the timings of K2+K3
+    and K4 by kernel and shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
     from tokendagger_tpu_torch.ops import pretokenize as PT
@@ -814,6 +869,7 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
     errs = dict.fromkeys(("utf8_decode_block", "piece_starts_cp",
                           "compact_piece_keys", "compact_by_mask"), 0)
     k4_times: dict = {}
+    k23_times: dict = {}
     prof = eng._profile
     rows, mask = eng.tables.vhash8_rows, eng.tables.vhash8_mask
     for label, raw, N in windows:
@@ -882,6 +938,14 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
         )
         print(f"engine stage ms (one {label} window, {npc} pieces, p_cap "
               f"{p_cap}): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+        key_bytes = int(torch.clamp(keys[1], max=16).sum())
+        at = f"engine {label} (1, {N}) byte flags"
+        k23_times[at] = timings(
+            lambda: CP.compact_piece_keys(stb, d, nb, p_cap),
+            lambda: CP.compact_piece_keys_plain(stb, d, nb, p_cap),
+            N + key_bytes + 8 + 24 * p_cap, N)
+        print(f"K2+K3 compact_piece_keys [{at}, {npc} pieces]: "
+              f"{show(k23_times[at])}")
         shapes = [(f"engine decode (1, {N}) k 2", (arrs, is_lead, 0))]
         shapes += [(f"engine finalize (1, {p_cap}) k {len(a[0])} fill {a[2]}",
                     a) for key, a in fin_k4.items()
@@ -894,7 +958,7 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
                 P + 4 * k * kept + 4 * k * P, P)
             print(f"K4 compact_by_mask [{at}, {kept} kept]: "
                   f"{show(k4_times[at])}")
-    return errs, k4_times
+    return errs, dict(compact_by_mask=k4_times, compact_piece_keys=k23_times)
 
 
 def window_choice(eng, host, text: str) -> None:
@@ -1114,12 +1178,18 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
             back = CP.expand_route(dense, route, m)
             e7 = max(e7, max_abs_err(
                 [back], [CP.expand_route_plain(dense, route, m)]))
+        _, n_ev, n_kern = traced(lambda: CP.compact_record(
+            arrays, mask, cap=cap, fill=fill))
         print(f"K5+K6 compact_record [{name}: {len(arrays)} x {(B, N)} -> "
-              f"cap {cap}]: max_abs_err {e5}; K7+K8 expand_route: "
+              f"cap {cap}]: max_abs_err {e5}, {n_kern} kernel launch per "
+              f"call ({n_ev} kernel events); K7+K8 expand_route: "
               f"max_abs_err {e7} (main-path inputs and edge rows)")
         if e5 or e7:
             raise AssertionError(f"K5-K8 differ from their plain versions "
                                  f"at the {name} shape")
+        if n_kern != 1:
+            raise AssertionError(f"K5+K6 launched {n_kern} kernels in one "
+                                 "call")
         err5, err7 = max(err5, e5), max(err7, e7)
         # timing on the main path's inputs
         got = CP.compact_record(arrays, mask, cap=cap, fill=fill)
@@ -1327,6 +1397,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     rows = check_kernels(args.seed, "cuda") + check_engine_kernels(
         args.seed, "cuda")
+    k1_group_err, k1_group_times = check_k1_groups(args.seed, "cuda")
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], k1_group_err)
     # each path runs with the counts set to 0 just before it; a kernel on
     # several paths reports the sum of its launches as "launches", and
     # each path's count in "launches_by_path"
@@ -1347,7 +1419,8 @@ def main() -> int:
         r["max_abs_err"] = max(r["max_abs_err"], engine_errs.get(name, 0),
                                resident_errs.get(name, 0))
         more = {**resident_times.get(name, {}),
-                **(engine_times if name == "compact_by_mask" else {})}
+                **engine_times.get(name, {}),
+                **(k1_group_times if name == "piece_starts" else {})}
         for k, v in by_shape(more).items():
             r.setdefault(k, {}).update(v)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1358,6 +1431,7 @@ def main() -> int:
             "library_ms_by_shape", "blocks_per_window_by_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
+
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

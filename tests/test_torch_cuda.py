@@ -78,6 +78,35 @@ def test_k1_segmented_entries_equal_plain(dev, profile, B):
             assert torch.equal(got, plain(xs, ys, profile=profile)), (fn, r)
 
 
+@pytest.mark.parametrize("profile", PROFILES)
+def test_k1_past_resident_blocks_equals_plain(dev, profile):
+    """300 windows of 1024 chars, more than the card holds K1 blocks (264
+    on the H100): every entry runs them in groups of one block per window
+    and equals its plain version."""
+    B, n = 300, 1024
+    rng = np.random.default_rng(B)
+    lengths = rng.integers(0, n + 1, B)
+    lengths[:3] = (0, n, 33)
+    by, nb = stage([ascii_text(rng, int(k)) for k in lengths], n, rng)
+    cp = rng.integers(0, 0x110000, by.shape).astype(np.int32)
+    for b, k in enumerate(lengths):
+        cp[b, :k] = [ord(c) for c in multiscript_text(rng, int(k))[:k]]
+    m = lengths.astype(np.int32)
+    words = BP.char_class_words(profile)[cp].astype(np.int32)
+    assert BP.starts_blocks_per_window("bytes", B, n) >= 1
+    entries = [
+        (BP.piece_starts_bits, BP.piece_starts_bits_plain, by, nb),
+        (lambda x, y, profile: BP.piece_starts_chars(
+            x, y, profile=profile, packed_out=True),
+         BP.piece_starts_chars_plain, cp, m),
+        (BP.piece_starts_words, BP.piece_starts_words_plain, words, m)]
+    for fn, plain, x, y in entries:
+        xs, ys = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        got = fn(xs, ys, profile=profile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(xs, ys, profile=profile)), fn
+
+
 @pytest.mark.parametrize("packed", [False, True])
 def test_k2k3_equals_plain(dev, packed):
     n = 1 << 15
@@ -205,7 +234,8 @@ def test_engine_card_equals_cpu(dev):
 
 def _route_masks(dev, B, N, cap, seed):
     """Rows: random 30%, skewed (empty first half), empty, all kept (an
-    overflow when cap < N), random 60%, random 5%."""
+    overflow when cap < N), random 60%, random 5%, and all kept after the
+    first 1000 (the kept count crosses cap inside a 4096-element tile)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     mask = torch.rand((B, N), generator=g, device=dev) < 0.3
     mask[1, : N // 2] = False
@@ -213,6 +243,7 @@ def _route_masks(dev, B, N, cap, seed):
     mask[3] = True
     mask[4] = torch.rand((N,), generator=g, device=dev) < 0.6
     mask[5] = torch.rand((N,), generator=g, device=dev) < 0.05
+    mask[6] = torch.arange(N, device=dev) >= 1000
     return mask, g
 
 
@@ -220,18 +251,28 @@ def _route_masks(dev, B, N, cap, seed):
 @pytest.mark.parametrize("N,cap", [(100, 64), (65536, 32768), (70001, 90000),
                                    (1 << 20, 655360)])
 def test_k5k8_equals_plain(dev, k, N, cap):
-    B = 6
+    """K5+K6 on rows of one tile, of many (look-back past 32 tiles at
+    2^20), with cap below and above N (the fill of [N, cap)); twice on the
+    same status words, and once on a second stream with its own."""
+    B = 7
     mask, g = _route_masks(dev, B, N, cap, N + k)
     arrays = [torch.randint(-2**31, 2**31 - 1, (B, N), generator=g,
                             device=dev, dtype=torch.int32) for _ in range(k)]
+    side = torch.cuda.Stream(dev)
     for fill in (0, -1):
-        got = CP.compact_record(arrays, mask, cap=cap, fill=fill)
         want = CP.compact_record_plain(arrays, mask, cap=cap, fill=fill)
+        runs = [CP.compact_record(arrays, mask, cap=cap, fill=fill)
+                for _ in range(2)]
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            runs.append(CP.compact_record(arrays, mask, cap=cap, fill=fill))
         torch.cuda.synchronize()
-        for a, b in zip(got[0], want[0]):
-            assert torch.equal(a, b)
-        assert torch.equal(got[1], want[1])
-        assert torch.equal(got[2], want[2])
+        for got in runs:
+            assert len(got[0]) == k
+            for a, b in zip(got[0], want[0]):
+                assert a.is_contiguous() and torch.equal(a, b)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[2], want[2])
     dense = got[0][0]
     back = CP.expand_route(dense, got[2], mask)
     assert torch.equal(back, CP.expand_route_plain(dense, got[2], mask))
@@ -292,6 +333,35 @@ def test_general_stages_card_equal_cpu(dev):
             hot_ranks=hr, u_cap=256))
     for a, b in zip(*res):
         assert torch.equal(a.cpu(), b)
+
+
+def test_second_card_equals_cpu(dev):
+    """Every kernel runs on its tensors' card: the public API's encode and
+    decode and run_resident's general pipeline on cuda:1 while cuda:0 is
+    the current card, against the CPU."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from conftest import make_tiny_vocab
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, Tokenizer, run_resident
+
+    ranks, specials = make_tiny_vocab()
+    rng = np.random.default_rng(17)
+    text = multiscript_text(rng, 40000) + "<|bos|>" + prose_text(rng, 30000)
+    corpus = multiscript_text(rng, 2 * 32768).encode()
+    kw = dict(pat_str=LLAMA4_PATTERN, mergeable_ranks=ranks,
+              special_tokens=specials)
+    want = Tokenizer("t", device="cpu", **kw).encode(text,
+                                                     allowed_special="all")
+    with torch.cuda.device(0):
+        tok = Tokenizer("t", device="cuda:1", **kw)
+        assert tok.encode(text, allowed_special="all") == want
+        assert tok.decode(want) == text
+        for cap in (3.0, 0):
+            r = run_resident(ranks, specials, LLAMA4_PATTERN, corpus,
+                             window=32768, n_windows=2, batch=2, reps=1,
+                             cap_bytes_per_piece=cap, probe_impl="chunks",
+                             overlap_trial=False, device="cuda:1")
+            assert r.match_host and r.overflow_windows == 0
 
 
 def test_resident_card_equals_cpu(dev):

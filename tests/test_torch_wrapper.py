@@ -188,6 +188,47 @@ def test_unknown_pattern_raises_on_device():
         tok.encode_ordinary("hello")
 
 
+def _outside_profiles(kind):
+    """A tokenizer the device window pipeline cannot serve: a pattern
+    outside the four profiles, or a vocabulary lacking a byte rank."""
+    ranks, specials = make_tiny_vocab()
+    if kind == "pattern":
+        return r"\w+|\s+|[^\w\s]+", ranks, specials
+    return LLAMA4_PATTERN, {b: r for b, r in ranks.items()
+                            if b != b"\xff"}, specials
+
+
+@pytest.mark.parametrize("kind", ["pattern", "byte_rank"])
+def test_auto_encodes_outside_profiles_on_host(kind):
+    pat, ranks, specials = _outside_profiles(kind)
+    kw = dict(pat_str=pat, mergeable_ranks=ranks, special_tokens=specials,
+              device="cpu")
+    text = "hello world " * 2000                      # 24 KB: past 16 KiB
+    want = Tokenizer("t", backend="host", **kw).encode_ordinary(text)
+    auto = Tokenizer("t", backend="auto", **kw)
+    assert auto.encode_ordinary(text) == want
+    assert auto.encode_batch([text, "hi"]) == [
+        want, auto._host.encode_ordinary("hi")]
+    with pytest.raises(TokenDaggerError, match="not ported"):
+        Tokenizer("t", backend="device", **kw).encode_ordinary(text)
+
+
+@pytest.mark.parametrize("kind", ["pattern", "byte_rank"])
+def test_device_decode_outside_profiles(kind):
+    pat, ranks, specials = _outside_profiles(kind)
+    kw = dict(pat_str=pat, mergeable_ranks=ranks, special_tokens=specials,
+              device="cpu")
+    host = Tokenizer("t", backend="host", **kw)
+    ids = host.encode("hello world, it's <|bos|> x " * 300,
+                      allowed_special="all")
+    assert len(ids) >= 4096                            # "auto" decodes these
+    for backend, n in (("device", 30), ("auto", len(ids))):
+        tok = Tokenizer("t", backend=backend, **kw)
+        assert tok.decode_bytes(ids[:n]) == host.decode_bytes(ids[:n])
+        assert tok.decode(ids[:n]) == host.decode(ids[:n])
+        assert tok._device is None                     # no engine was built
+
+
 def test_factories(tmp_path):
     import json
 

@@ -4,8 +4,9 @@ state.
 ``StreamTables`` is what ``ResidentStream`` keeps on the device: the
 ``vhash8`` whole-piece table. ``EngineTables`` is what ``DeviceEngine``
 and ``Tokenizer`` keep: the same table plus the rank -> bytes decode
-tables. ``tables_from_reference`` and ``engine_tables_from_reference``
-take the JAX package's arrays as numpy (the fields of
+tables, which ``decode_tables_from_ranks`` also builds alone.
+``tables_from_reference`` and ``engine_tables_from_reference`` take the
+JAX package's arrays as numpy (the fields of
 ``tables.build_tables(...)``, and ``unicode_tables.get_tables()``) and
 return them as the port's tensors. The class table must be the one this
 package ships (``data/unicode_classes.npz``): its kernels classify bytes
@@ -46,16 +47,34 @@ class EngineTables:
     vhash8_dropped: int = 0
 
 
+def decode_tables_from_ranks(ranks: dict[bytes, int],
+                             specials: dict[str, int], *,
+                             device: str | torch.device):
+    """The rank -> bytes tables alone, which do not depend on the split
+    pattern: (offsets, lengths, blob) tensors on ``device`` and n_vocab,
+    as ``EngineTables`` holds them."""
+    from .tables import build_decode_tables
+
+    offs, lens, blob, n_vocab = build_decode_tables(ranks, specials)
+    return (torch.as_tensor(offs, device=device),
+            torch.as_tensor(lens, device=device),
+            torch.as_tensor(blob, device=device), n_vocab)
+
+
 def engine_tables_from_ranks(ranks: dict[bytes, int],
                              specials: dict[str, int], *,
-                             device: str | torch.device) -> EngineTables:
-    from .tables import build_decode_tables, build_vhash8
+                             device: str | torch.device,
+                             decode=None) -> EngineTables:
+    """``EngineTables`` on ``device``; ``decode``, the tuple of
+    ``decode_tables_from_ranks`` for the same vocabulary, is reused rather
+    than built again."""
+    from .tables import build_vhash8
 
     rows, mask, dropped = build_vhash8(ranks)
-    t = engine_tables_from_reference(
-        rows, mask, *build_decode_tables(ranks, specials), device=device)
-    t.vhash8_dropped = dropped
-    return t
+    if decode is None:
+        decode = decode_tables_from_ranks(ranks, specials, device=device)
+    return EngineTables(torch.as_tensor(rows, device=device), mask, *decode,
+                        vhash8_dropped=dropped)
 
 
 def _rows(vhash8_rows: np.ndarray, vhash8_mask: int) -> np.ndarray:

@@ -32,7 +32,10 @@
 // blocks of 512 threads per SM), shared out as S = blocks / B segments per
 // window, one block per segment: segment s of window b owns words
 // [s*C/S, (s+1)*C/S) of each plane (C = N/32), so the engine's single
-// window runs on every SM and a batch of 8 on 33 blocks each. A pass is:
+// window runs on every SM and a batch of 8 on 33 blocks each. A batch of
+// more windows than the card holds blocks (264 on the H100) runs as
+// groups of at most that many windows, one block each, one cooperative
+// launch per group on the same stream. A pass is:
 //   * each: every block evaluates its own words, then the grid barrier
 //     (cooperative_groups grid sync; every window runs the same pass
 //     sequence, so one barrier serves all of them);
@@ -284,35 +287,59 @@ piece_starts_words_kernel(const int32_t* words, const int32_t* nchars, int N,
   store_plane_major(S, o.C, out);
 }
 
-// Segments per window for a launch of B windows of N chars: the blocks of
-// `kernel` the card holds at once, shared out evenly, at most one per word.
-// 0 with *err set when the windows cannot all be resident.
+// The blocks of `kernel` the card holds at once (at most kMaxBlocks).
 template <class K>
-int segments(K kernel, int B, int N, cudaError_t* err) {
+cudaError_t resident_blocks(K kernel, int* cap) {
   int dev = 0, sms = 0, per = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err == cudaSuccess)
-    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (*err == cudaSuccess)
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
-                                                         kThreads, 0);
-  if (*err != cudaSuccess) return 0;
-  const int cap = sms * per < kMaxBlocks ? sms * per : kMaxBlocks;
-  int S = B > 0 ? cap / B : 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
+                                                        kThreads, 0);
+  *cap = sms * per < kMaxBlocks ? sms * per : kMaxBlocks;
+  return err;
+}
+
+// A batch of B windows of N chars runs as groups of G windows, one
+// cooperative launch each: G = B while B fits the card's co-resident
+// blocks, else B split evenly into the fewest groups of at most `cap`.
+// Each window of a group gets S = cap / G segments, at most one per word.
+struct Groups {
+  int G, S;
+};
+
+Groups groups(int cap, int B, int N) {
+  const int n = B <= cap ? 1 : (B + cap - 1) / cap;
+  const int G = (B + n - 1) / n;
+  int S = G > 0 ? cap / G : 0;
   if (S > N / 32) S = N / 32;
-  if (S < 1) *err = cudaErrorCooperativeLaunchTooLarge;
-  return S;
+  return Groups{G, S};
+}
+
+// Runs one(b0, G', S) for the groups of a batch in order, b0 the
+// group's first window and G' its windows, on one stream: groups run one
+// after another, so each may reuse the module-wide segment maps.
+template <class K, class L>
+int run_groups(K kernel, int B, int N, const L& one) {
+  int cap = 0;
+  cudaError_t err = resident_blocks(kernel, &cap);
+  if (err != cudaSuccess) return (int)err;
+  const Groups g = groups(cap, B, N);
+  if (g.S < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  for (int b0 = 0; b0 < B; b0 += g.G) {
+    err = one(b0, B - b0 < g.G ? B - b0 : g.G, g.S);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <class K, class... A>
-int launch(K kernel, int B, int N, cudaStream_t stream, A... args) {
-  cudaError_t err;
-  const int S = segments(kernel, B, N, &err);
-  if (err != cudaSuccess) return (int)err;
+cudaError_t launch(K kernel, int S, int G, cudaStream_t stream, A... args) {
   void* params[] = {(void*)&args...};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(S, B),
-                                    dim3(kThreads), params, 0, stream);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(S, G),
+                                     dim3(kThreads), params, 0, stream);
 }
 
 }  // namespace
@@ -331,14 +358,16 @@ int td_piece_starts_passes(int profile, int N) {
   return o.passes;
 }
 
-// Blocks (segments) per window a launch of B windows of N chars uses, for
-// the entry td_piece_starts (0), td_piece_starts_cp (1) or
-// td_piece_starts_words (2); 0 if it would be refused.
+// Blocks (segments) per window the launches of B windows of N chars use,
+// for the entry td_piece_starts (0), td_piece_starts_cp (1) or
+// td_piece_starts_words (2); 0 if the card cannot be read.
 int td_piece_starts_blocks(int entry, int B, int N) {
-  cudaError_t err;
-  if (entry == 0) return segments(piece_starts_kernel, B, N, &err);
-  if (entry == 1) return segments(piece_starts_cp_kernel, B, N, &err);
-  return segments(piece_starts_words_kernel, B, N, &err);
+  int cap = 0;
+  const cudaError_t err =
+      entry == 0   ? resident_blocks(piece_starts_kernel, &cap)
+      : entry == 1 ? resident_blocks(piece_starts_cp_kernel, &cap)
+                   : resident_blocks(piece_starts_words_kernel, &cap);
+  return err == cudaSuccess ? groups(cap, B, N).S : 0;
 }
 
 // data (B, N) uint8, nbytes (B,) int32, lut 128 class words, scratch
@@ -350,9 +379,14 @@ int td_piece_starts(const void* data, const void* nbytes, int B, int N,
                     void* out, void* stream) {
   Lut l;
   for (int i = 0; i < 128; ++i) l.v[i] = lut[i];
-  return launch(piece_starts_kernel, B, N, (cudaStream_t)stream,
-                (const uint8_t*)data, (const int32_t*)nbytes, N, profile, l,
-                (uint32_t*)scratch, (uint32_t*)out);
+  const size_t words = (size_t)td_piece_starts_scratch_words(N);
+  return run_groups(piece_starts_kernel, B, N, [&](int b0, int G, int S) {
+    return launch(piece_starts_kernel, S, G, (cudaStream_t)stream,
+                  (const uint8_t*)data + (size_t)b0 * N,
+                  (const int32_t*)nbytes + b0, N, profile, l,
+                  (uint32_t*)scratch + b0 * words,
+                  (uint32_t*)out + (size_t)b0 * (N / 32));
+  });
 }
 
 // cp (B, N) int32 codepoints, nchars (B,) int32 valid lengths, table the
@@ -361,9 +395,14 @@ int td_piece_starts(const void* data, const void* nbytes, int B, int N,
 int td_piece_starts_cp(const void* cp, const void* nchars, int B, int N,
                        int profile, const void* table, void* scratch,
                        void* out, void* stream) {
-  return launch(piece_starts_cp_kernel, B, N, (cudaStream_t)stream,
-                (const int32_t*)cp, (const int32_t*)nchars, N, profile,
-                (const uint16_t*)table, (uint32_t*)scratch, (uint32_t*)out);
+  const size_t words = (size_t)td_piece_starts_scratch_words(N);
+  return run_groups(piece_starts_cp_kernel, B, N, [&](int b0, int G, int S) {
+    return launch(piece_starts_cp_kernel, S, G, (cudaStream_t)stream,
+                  (const int32_t*)cp + (size_t)b0 * N,
+                  (const int32_t*)nchars + b0, N, profile,
+                  (const uint16_t*)table, (uint32_t*)scratch + b0 * words,
+                  (uint32_t*)out + (size_t)b0 * (N / 32));
+  });
 }
 
 // words (B, N) int32 class words per char (bits as char_class_words),
@@ -372,9 +411,15 @@ int td_piece_starts_cp(const void* cp, const void* nchars, int B, int N,
 int td_piece_starts_words(const void* words, const void* nchars, int B,
                           int N, int profile, void* scratch, void* out,
                           void* stream) {
-  return launch(piece_starts_words_kernel, B, N, (cudaStream_t)stream,
-                (const int32_t*)words, (const int32_t*)nchars, N, profile,
-                (uint32_t*)scratch, (uint32_t*)out);
+  const size_t sw = (size_t)td_piece_starts_scratch_words(N);
+  return run_groups(
+      piece_starts_words_kernel, B, N, [&](int b0, int G, int S) {
+        return launch(piece_starts_words_kernel, S, G, (cudaStream_t)stream,
+                      (const int32_t*)words + (size_t)b0 * N,
+                      (const int32_t*)nchars + b0, N, profile,
+                      (uint32_t*)scratch + b0 * sw,
+                      (uint32_t*)out + (size_t)b0 * (N / 32));
+      });
 }
 
 }  // extern "C"

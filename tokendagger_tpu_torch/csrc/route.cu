@@ -14,113 +14,229 @@
 // recorded their take masks so that two inverse replays could route values
 // back: Mosaic had no scatter and no in-kernel prefix sum. Here the route is
 // what the compaction's scan yields anyway: for each element its rank among
-// the kept elements of its row, -1 off the mask. The compaction is a count
-// pass and a scatter pass, one block per 8192 elements; a warp takes 1024
-// consecutive elements 32 at a time and ranks them with one ballot and a
-// popcount, so every load and store of a warp is to consecutive addresses.
-// The expansion is one gather pass, out[j] = dense[route[j]], with nothing
-// to clear first.
+// the kept elements of its row, -1 off the mask. The expansion is one gather
+// pass, out[j] = dense[route[j]], with nothing to clear first.
 //
 // What bounds them on the H100: bytes. K5+K6 read the mask (1 byte per
-// element) and the kept values, and write the dense prefix and the route
+// element) and the kept values, and write every dense slot and the route
 // (4 bytes per element); K7+K8 read the route, the mask and the values they
 // fetch, and write 4 bytes per element. Each does a few integer operations
 // per byte, far below the card's ratio of operations to bytes.
+//
+// K5+K6 is one pass (record_kernel), in the shape of K4 (compact.cu): one
+// block per tile of 4096 elements, each mask byte read once in 16-byte
+// loads, the count before a tile found by decoupled look-back over per-tile
+// status words, and every route store of a warp on 32 consecutive slots.
+// Unlike K4 it writes no dense slot twice: kept values go to [0, total) and
+// the row's last tile, the first to know the row's total, fills
+// [total, cap) itself, so the two never meet and no fence orders them. On
+// the main path a row's fill is a few hundred to 22 K slots; a row with
+// few kept elements and a large cap leaves that one block a long fill.
+// What holds it above its bound on the main path (tools/k5_variants.py):
+// the kept values and the route. At 11% (the hot-codepoint classes) or
+// 35% (the hot-piece probe) of a row kept, a warp's loads of its kept
+// values still fetch nearly every 32-byte sector of the inputs, so they
+// are read whole where the bound counts the kept values only; the route
+// is 4 bytes per element whatever the mask.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kVec = 16;                      // mask bytes per thread
+constexpr int kTile = kThreads * kVec;        // elements per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kPerWarp = 32 * 32;
-constexpr int kTile = kWarps * kPerWarp;
 constexpr int kMaxArrays = 8;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr uint32_t kAgg = 1u, kIncl = 2u;     // tile status flags
 
-struct Arrays {
-  const int32_t* in[kMaxArrays];
-  int32_t* out[kMaxArrays];
+struct Ins {
+  const int32_t* p[kMaxArrays];
 };
 
-// Kept elements among the 1024 from `first` of a row (whole warp).
-__device__ __forceinline__ int warp_count(const uint8_t* mask, int N,
-                                          int first) {
-  const int lane = threadIdx.x & 31;
-  int c = 0;
-  for (int r = 0; r < 32; ++r) {
-    const int i = first + 32 * r + lane;
-    c += __popc(__ballot_sync(kFull, i < N && mask[i] != 0));
-  }
-  return c;
+// Bit i set where byte i of x is nonzero (i < 4).
+__device__ __forceinline__ uint32_t nonzero4(uint32_t x) {
+  x |= x >> 4;
+  x |= x >> 2;
+  x |= x >> 1;
+  return (((x & 0x01010101u) * 0x01020408u) >> 24) & 0xFu;
 }
 
-// Sum over the block of one int per thread; every thread gets it.
-__device__ int block_sum(int v) {
-  __shared__ int s[kWarps];
+// A tile's status: tag (epoch << 2 | flag) above, its count below.
+__device__ __forceinline__ void put_status(unsigned long long* s,
+                                           uint32_t tag, int v) {
+  *(volatile unsigned long long*)s =
+      (unsigned long long)tag << 32 | (uint32_t)v;
+}
+
+// o[lo, hi) = v by the whole block, in 16-byte stores where aligned.
+__device__ void fill_range(int32_t* o, int lo, int hi, int32_t v) {
+  const int mis = (int)(((uintptr_t)(o + lo) >> 2) & 3u);
+  const int head = min(hi, lo + ((4 - mis) & 3));
+  for (int i = lo + threadIdx.x; i < head; i += blockDim.x) o[i] = v;
+  const int nq = (hi - head) >> 2;
+  int4* q = (int4*)(o + head);
+  const int4 vv = make_int4(v, v, v, v);
+  for (int i = threadIdx.x; i < nq; i += blockDim.x) q[i] = vv;
+  for (int i = head + 4 * nq + threadIdx.x; i < hi; i += blockDim.x)
+    o[i] = v;
+}
+
+// Whether lane l's element 32j + l of its warp's 512 is kept; `bits` holds
+// each thread's 16 keep bits (thread q: elements 16q .. 16q + 15).
+__device__ __forceinline__ bool kept(uint32_t bits, int j, int lane) {
+  return (__shfl_sync(kFull, bits, 2 * j + (lane >> 4)) >> (lane & 15)) & 1u;
+}
+
+// v[j] = src[32 j] for the lane's kept elements: 16 loads in flight.
+__device__ __forceinline__ void load_kept(int32_t (&v)[kVec],
+                                          const int32_t* src, uint32_t bits,
+                                          int lane) {
 #pragma unroll
-  for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-  __syncthreads();  // s is reused by the next call
-  if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int t = 0;
+  for (int j = 0; j < kVec; ++j)
+    v[j] = kept(bits, j, lane) ? __ldg(src + 32 * j) : 0;
+}
+
+// Ranks the warp's elements from `first` on; each kept element below cap
+// stores its v[j] to dense[rank]. With `route` (the warp's first element,
+// n of them in the row) it also writes each element's rank or -1.
+__device__ __forceinline__ void store_kept(const int32_t (&v)[kVec],
+                                           int32_t* dense, int first,
+                                           uint32_t bits, int lane, int cap,
+                                           int32_t* route, int n) {
+  const uint32_t below = (1u << lane) - 1u;
+  int pos = first;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) t += s[w];
-  return t;
-}
-
-__global__ void __launch_bounds__(kThreads)
-route_count_kernel(const uint8_t* mask, int N, int T, int32_t* counts) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = warp_count(mask + (size_t)b * N, N,
-                           t * kTile + warp * kPerWarp);
-  const int total = block_sum(lane == 0 ? c : 0);
-  if (threadIdx.x == 0) counts[(size_t)b * T + t] = total;
-}
-
-__global__ void __launch_bounds__(kThreads)
-route_scatter_kernel(const uint8_t* mask, int N, int T, const int32_t* counts,
-                     Arrays arr, int k, int cap, int32_t fill, int32_t* route,
-                     int32_t* totals) {
-  __shared__ int s_warp[kWarps];
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // kept elements of the row before this block, and in the whole row
-  const int32_t* cb = counts + (size_t)b * T;
-  int before = 0, all = 0;
-  for (int i = threadIdx.x; i < T; i += kThreads) {
-    all += cb[i];
-    if (i < t) before += cb[i];
-  }
-  before = block_sum(before);
-  all = block_sum(all);
-  const uint8_t* m = mask + (size_t)b * N;
-  const int first = t * kTile + warp * kPerWarp;
-  const int c = warp_count(m, N, first);
-  if (lane == 0) s_warp[warp] = c;
-  __syncthreads();
-  int pos = before;
-  for (int w = 0; w < warp; ++w) pos += s_warp[w];
-  const size_t row = (size_t)b * N, orow = (size_t)b * cap;
-  const unsigned below = (1u << lane) - 1u;
-  for (int r = 0; r < 32; ++r) {
-    const int i = first + 32 * r + lane;
-    const bool keep = i < N && m[i] != 0;
-    const unsigned bal = __ballot_sync(kFull, keep);
-    if (i < N) {
-      const int rank = pos + __popc(bal & below);
-      route[row + i] = keep ? rank : -1;
-      if (keep && rank < cap)
-        for (int a = 0; a < k; ++a) arr.out[a][orow + rank] = arr.in[a][row + i];
-    }
+  for (int j = 0; j < kVec; ++j) {
+    const bool keep = kept(bits, j, lane);
+    const uint32_t bal = __ballot_sync(kFull, keep);
+    const int rank = pos + __popc(bal & below);
+    if (route != nullptr && 32 * j + lane < n)
+      route[32 * j + lane] = keep ? rank : -1;
+    if (keep && rank < cap) dense[rank] = v[j];
     pos += __popc(bal);
   }
-  // dense slots past the kept count, spread over the row's blocks
-  for (long long s = (long long)min(all, cap) + t * kThreads + threadIdx.x;
-       s < cap; s += (long long)T * kThreads)
-    for (int a = 0; a < k; ++a) arr.out[a][orow + s] = fill;
-  if (t == 0 && threadIdx.x == 0) totals[b] = all;
+}
+
+// One block per tile of kTile elements of a row, tiles of a row in block
+// order (a block waits only on blocks launched before it):
+//  1. each thread reads 16 consecutive mask bytes (one 16-byte load where
+//     the row allows it) and counts them; a warp scan and a block scan
+//     rank the threads, and the tile's count is published (aggregate);
+//  2. the first warp looks back over the statuses of the tiles before it,
+//     32 at a time, summing aggregates up to the nearest inclusive count,
+//     and publishes its own inclusive count; the row's last tile writes it
+//     to totals;
+//  3. each warp walks its 512 elements 32 at a time, lane l on element
+//     32j + l: a ballot of the keep bits gives each element its rank, and
+//     the route gets the rank or -1 (one coalesced store per warp); each
+//     lane loads the values of its kept elements (16 loads in flight;
+//     array 0's already while the first warp looks back) and stores those
+//     below cap to dense[a][rank];
+//  4. the row's last tile fills the dense slots [total, cap).
+// Six blocks per SM (40 registers) measured faster than four (48) at all
+// three resident shapes (tools/k5_variants.py).
+__global__ void __launch_bounds__(kThreads, 6)
+record_kernel(const uint8_t* mask, int N, int T, Ins in, int k, int cap,
+              int32_t fill, int32_t* out, long long plane, int32_t* route,
+              int32_t* totals, unsigned long long* status, uint32_t epoch) {
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_base, s_total;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x / T, t = blockIdx.x - b * T;
+  const size_t row = (size_t)b * N, orow = (size_t)b * cap;
+  const int t0 = t * kTile;
+
+  const int e0 = t0 + kVec * tid;
+  const uint8_t* mrow = mask + row;
+  uint32_t bits = 0u;
+  if (e0 + kVec <= N && ((uintptr_t)(mrow + e0) & 15u) == 0u) {
+    const uint4 v = *(const uint4*)(mrow + e0);
+    bits = nonzero4(v.x) | nonzero4(v.y) << 4 | nonzero4(v.z) << 8 |
+           nonzero4(v.w) << 12;
+  } else {
+    for (int j = 0; j < kVec && e0 + j < N; ++j)
+      bits |= (mrow[e0 + j] != 0 ? 1u : 0u) << j;
+  }
+  int x = __popc(bits);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+
+  // array 0's kept values, loaded while the first warp looks back
+  const int ew = t0 + warp * 32 * kVec;
+  int32_t vals[kVec];
+  load_kept(vals, in.p[0] + row + ew + lane, bits, lane);
+
+  if (warp == 0) {
+    const int wv = lane < kWarps ? s_warp[lane] : 0;
+    int ws = wv;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, ws, d);
+      if (lane >= d) ws += y;
+    }
+    const int total = __shfl_sync(kFull, ws, kWarps - 1);
+    if (lane < kWarps) s_warp[lane] = ws - wv;
+    const uint32_t tag_agg = epoch << 2 | kAgg, tag_incl = epoch << 2 | kIncl;
+    unsigned long long* st = status + (size_t)b * T;
+    int excl = 0;
+    if (t > 0) {
+      if (lane == 0) put_status(st + t, tag_agg, total);
+      for (int pred = t - 1;; pred -= 32) {
+        const int i = pred - lane;
+        unsigned long long s = 0ull;
+        uint32_t tag = tag_incl;
+        if (i >= 0) {
+          do {
+            s = *(volatile unsigned long long*)(st + i);
+            tag = (uint32_t)(s >> 32);
+          } while (tag != tag_agg && tag != tag_incl);
+        }
+        const uint32_t incl = __ballot_sync(kFull, tag == tag_incl);
+        const int first = incl ? __ffs(incl) - 1 : 31;
+        int v = lane <= first && i >= 0 ? (int)(uint32_t)s : 0;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+        excl += v;
+        if (incl) break;
+      }
+    }
+    if (lane == 0) {
+      put_status(st + t, tag_incl, excl + total);
+      if (t == T - 1) totals[b] = excl + total;
+      s_base = excl;
+      s_total = excl + total;
+    }
+  }
+  __syncthreads();
+
+  // route and array 0, then arrays 1..k-1 (each loaded whole before its
+  // stores: a store to `out` could alias a later load, so the compiler
+  // would otherwise wait out each load in turn)
+  const int base = s_base + s_warp[warp];  // rank of the warp's first kept
+  store_kept(vals, out + orow, base, bits, lane, cap, route + row + ew,
+             N - ew);
+#pragma unroll
+  for (int a = 1; a < kMaxArrays; ++a) {
+    if (a < k) {
+      load_kept(vals, in.p[a] + row + ew + lane, bits, lane);
+      store_kept(vals, out + a * plane + orow, base, bits, lane, cap,
+                 nullptr, 0);
+    }
+  }
+
+  if (t == T - 1 && s_total < cap) {
+#pragma unroll
+    for (int a = 0; a < kMaxArrays; ++a)
+      if (a < k) fill_range(out + a * plane + orow, s_total, cap, fill);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -139,28 +255,36 @@ route_expand_kernel(const int32_t* dense, const int32_t* route,
 
 extern "C" {
 
-int td_route_tiles(int n) { return (n + kTile - 1) / kTile; }
+// Status words (64-bit) td_compact_record needs for a (B, N) mask.
+long long td_record_status_words(int B, int N) {
+  return (long long)B * ((N + kTile - 1) / kTile);
+}
 
-// mask (B, N) uint8; ins: k pointers to (B, N) int32, outs: k pointers to
-// (B, cap) int32 (1 <= k <= 8); counts scratch (B, td_route_tiles(N))
-// int32; route (B, N) int32; totals (B,) int32. N, cap >= 1, B <= 65535.
-int td_compact_record(const void* mask, int B, int N, void* const* ins,
-                      void* const* outs, int k, int cap, int fill,
-                      void* counts, void* route, void* totals, void* stream) {
-  if (k < 1 || k > kMaxArrays || N < 1 || cap < 1 || B < 1 || B > 65535)
+// mask (B, N) uint8 (nonzero: keep); in0..in7 the k (B, N) int32 inputs
+// (1 <= k <= 8, the rest unused); out (k, B, cap) int32; route (B, N)
+// int32; totals (B,) int32. status and epoch as for td_compact_by_mask
+// (compact.cu): at least td_record_status_words(B, N) words that only this
+// kernel writes, zeroed before their first use, and an epoch in [1, 2^30)
+// unlike that of the launch before on the same words; launches that share
+// `status` must not overlap. N, cap >= 1. One launch.
+int td_compact_record(const void* mask, int B, int N, const void* in0,
+                      const void* in1, const void* in2, const void* in3,
+                      const void* in4, const void* in5, const void* in6,
+                      const void* in7, int k, int cap, int fill, void* out,
+                      void* route, void* totals, void* status,
+                      unsigned epoch, void* stream) {
+  const long long blocks = td_record_status_words(B, N);
+  if (k < 1 || k > kMaxArrays || N < 1 || cap < 1 || B < 1 ||
+      blocks > INT_MAX || epoch == 0u || epoch >= (1u << 30))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int T = td_route_tiles(N);
-  Arrays arr;
-  for (int a = 0; a < kMaxArrays; ++a) {
-    arr.in[a] = a < k ? (const int32_t*)ins[a] : nullptr;
-    arr.out[a] = a < k ? (int32_t*)outs[a] : nullptr;
-  }
-  route_count_kernel<<<dim3(T, B), kThreads, 0, s>>>(
-      (const uint8_t*)mask, N, T, (int32_t*)counts);
-  route_scatter_kernel<<<dim3(T, B), kThreads, 0, s>>>(
-      (const uint8_t*)mask, N, T, (const int32_t*)counts, arr, k, cap, fill,
-      (int32_t*)route, (int32_t*)totals);
+  const Ins in{{(const int32_t*)in0, (const int32_t*)in1,
+                (const int32_t*)in2, (const int32_t*)in3,
+                (const int32_t*)in4, (const int32_t*)in5,
+                (const int32_t*)in6, (const int32_t*)in7}};
+  record_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, N, (N + kTile - 1) / kTile, in, k, cap, fill,
+      (int32_t*)out, (long long)B * cap, (int32_t*)route, (int32_t*)totals,
+      (unsigned long long*)status, epoch);
   return (int)cudaGetLastError();
 }
 

@@ -60,6 +60,19 @@ CARD_WINDOW = SCAN_SIZES[3]
 CPU_WINDOW = SCAN_SIZES[1]
 
 
+def unsupported_reason(pattern: str,
+                       mergeable_ranks: dict[bytes, int]) -> str | None:
+    """Why ``DeviceEngine`` cannot serve a tokenizer, or None when it can:
+    its window pipeline needs one of the four pattern profiles and a rank
+    for every single byte. A static property of the tokenizer."""
+    if classify_pattern(pattern) is None:
+        return "the pattern is not one of the four supported profiles"
+    missing = sum(bytes([b]) not in mergeable_ranks for b in range(256))
+    if missing:
+        return f"the vocabulary lacks {missing} single-byte ranks"
+    return None
+
+
 @dataclass
 class EngineStats:
     """Counters and a host-clock split of the engine's work."""
@@ -97,17 +110,12 @@ class DeviceEngine:
             raise RuntimeError("device='cuda' but CUDA is not available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        kind = classify_pattern(pattern)
-        missing = [b for b in range(256)
-                   if bytes([b]) not in mergeable_ranks]
-        if kind is None or missing:
-            why = ("the pattern is not one of the four supported profiles"
-                   if kind is None else
-                   f"the vocabulary lacks {len(missing)} single-byte ranks")
+        why = unsupported_reason(pattern, mergeable_ranks)
+        if why is not None:
             raise NotImplementedError(
                 f"DeviceEngine: {why}; the device piece path for such "
                 "inputs is not ported yet (ROADMAP.md queue 1, item 13)")
-        self._profile = kind
+        self._profile = classify_pattern(pattern)
         self.host = HostEngine(pattern, mergeable_ranks, special_tokens)
         self.ranks = self.host.ranks
         if tables is None:

@@ -19,7 +19,9 @@ gpt2) two entry points turn windows into piece-start flags:
 Each of them:
 
 * on CUDA tensors launches kernel K1 (``csrc/piece_starts.cu``), which
-  builds the class planes and runs the whole derivation in one launch;
+  builds the class planes and runs the whole derivation in one launch
+  (one per group of windows, for a batch of more windows than the card
+  holds blocks);
 * on CPU tensors runs the plain version below, a line-for-line port of
   the reference's word-space derivation.
 
@@ -728,7 +730,9 @@ _K1_ENTRIES = {"bytes": 0, "codepoints": 1, "words": 2}
 def starts_blocks_per_window(entry: str, batch: int, n: int) -> int:
     """Thread blocks (segments) per window K1's ``entry`` ("bytes",
     "codepoints" or "words") launches for ``batch`` windows of ``n`` chars
-    on the current card; 0 if the launch would be refused."""
+    on the current card (a batch of more windows than the card holds
+    blocks runs in groups, one block per window); 0 if the card cannot be
+    read."""
     return _k1_library().td_piece_starts_blocks(_K1_ENTRIES[entry], batch, n)
 
 

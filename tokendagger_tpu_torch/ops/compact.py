@@ -34,6 +34,7 @@ are int32 tensors carrying the uint32 bits.
 from __future__ import annotations
 
 import ctypes
+from contextlib import contextmanager
 from functools import lru_cache
 
 import torch
@@ -148,20 +149,23 @@ def _route_library():
 
     lib = cuda_library("route")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.td_route_tiles.argtypes = [i]
-    lib.td_route_tiles.restype = i
-    lib.td_compact_record.argtypes = [
-        vp, i, i, ctypes.POINTER(vp), ctypes.POINTER(vp), i, i, i, vp, vp,
-        vp, vp]
+    lib.td_record_status_words.argtypes = [i, i]
+    lib.td_record_status_words.restype = ctypes.c_longlong
+    lib.td_compact_record.argtypes = (
+        [vp, i, i] + [vp] * 8 + [i, i, i, vp, vp, vp, vp, ctypes.c_uint, vp])
     lib.td_compact_record.restype = i
     lib.td_expand_route.argtypes = [vp, vp, vp, i, i, i, vp, vp]
     lib.td_expand_route.restype = i
     return lib
 
 
-def _stream(dev: torch.device) -> int:
+@contextmanager
+def _on(dev: torch.device):
+    """Makes ``dev`` the current card and yields its current stream: a
+    C entry is issued inside, so that its kernel runs on the tensors'
+    card and on that card's stream."""
     with torch.cuda.device(dev):
-        return torch.cuda.current_stream().cuda_stream
+        yield torch.cuda.current_stream().cuda_stream
 
 
 def _check(rc: int, what: str) -> None:
@@ -178,29 +182,31 @@ def _launch_k2k3(starts, data, nbytes, p_cap: int, packed: bool):
     outs = [torch.empty((B, p_cap), dtype=torch.int32, device=dev)
             for _ in range(6)]
     n_pieces = torch.empty((B,), dtype=torch.int32, device=dev)
-    rc = lib.td_compact_piece_keys(
-        starts.data_ptr(), int(packed), data.data_ptr(), nbytes.data_ptr(),
-        B, N, p_cap, counts.data_ptr(), *[o.data_ptr() for o in outs],
-        n_pieces.data_ptr(), _stream(dev))
+    with _on(dev) as stream:
+        rc = lib.td_compact_piece_keys(
+            starts.data_ptr(), int(packed), data.data_ptr(),
+            nbytes.data_ptr(), B, N, p_cap, counts.data_ptr(),
+            *[o.data_ptr() for o in outs], n_pieces.data_ptr(), stream)
     _check(rc, "compact_piece_keys")
     compact_piece_keys.launches += 1
     return (*outs, n_pieces)
 
 
-# K4's tile status words, per (device, stream): [int64 tensor, epoch of
-# the last launch]. Only K4 writes them and each launch tags its statuses
+# The tile status words of the look-back kernels (K4, K5+K6), per
+# (kernel, device, stream): [int64 tensor, epoch of the last launch]. Each
+# buffer is written by one kernel only, and each launch tags its statuses
 # with a new epoch, so they are zeroed once, when allocated, and never
 # cleared. Launches on one stream run one after another; a launch on
 # another stream gets its own words, since one whose statuses another
 # overwrote would wait for them forever.
-_K4_STATUS: dict = {}
+_STATUS: dict = {}
 
 
-def _k4_status(key, words: int):
-    st = _K4_STATUS.get(key)
+def _status(key, words: int):
+    st = _STATUS.get(key)
     if st is None or st[0].numel() < words:
-        st = _K4_STATUS[key] = [
-            torch.zeros(max(words, 4096), dtype=torch.int64, device=key[0]),
+        st = _STATUS[key] = [
+            torch.zeros(max(words, 4096), dtype=torch.int64, device=key[1]),
             0]
     st[1] = st[1] % ((1 << 30) - 1) + 1
     return st
@@ -211,14 +217,14 @@ def _launch_k4(arrays, mask, fill: int):
     B, P = mask.shape
     dev = mask.device
     k = len(arrays)
-    stream = _stream(dev)
     out = torch.empty((k, B, P), dtype=torch.int32, device=dev)
-    status, epoch = _k4_status((dev, stream),
-                               lib.td_compact_status_words(B, P))
     ins = [a.data_ptr() for a in arrays] + [None] * (8 - k)
-    rc = lib.td_compact_by_mask(mask.data_ptr(), B, P, *ins, k, fill,
-                                out.data_ptr(), status.data_ptr(), epoch,
-                                stream)
+    with _on(dev) as stream:
+        status, epoch = _status(("K4", dev, stream),
+                                lib.td_compact_status_words(B, P))
+        rc = lib.td_compact_by_mask(mask.data_ptr(), B, P, *ins, k, fill,
+                                    out.data_ptr(), status.data_ptr(), epoch,
+                                    stream)
     _check(rc, "compact_by_mask")
     compact_by_mask.launches += 1
     return list(out.unbind(0))
@@ -228,30 +234,31 @@ def _launch_k5k6(arrays, mask, cap: int, fill: int):
     lib = _route_library()
     B, N = mask.shape
     dev = mask.device
-    counts = torch.empty((B, lib.td_route_tiles(N)), dtype=torch.int32,
-                         device=dev)
-    outs = [torch.empty((B, cap), dtype=torch.int32, device=dev)
-            for _ in arrays]
+    k = len(arrays)
+    out = torch.empty((k, B, cap), dtype=torch.int32, device=dev)
     route = torch.empty((B, N), dtype=torch.int32, device=dev)
     totals = torch.empty((B,), dtype=torch.int32, device=dev)
-    k = len(arrays)
-    ins_p = (ctypes.c_void_p * k)(*[a.data_ptr() for a in arrays])
-    outs_p = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
-    rc = lib.td_compact_record(mask.data_ptr(), B, N, ins_p, outs_p, k, cap,
-                               fill, counts.data_ptr(), route.data_ptr(),
-                               totals.data_ptr(), _stream(dev))
+    ins = [a.data_ptr() for a in arrays] + [None] * (8 - k)
+    with _on(dev) as stream:
+        status, epoch = _status(("K5+K6", dev, stream),
+                                lib.td_record_status_words(B, N))
+        rc = lib.td_compact_record(mask.data_ptr(), B, N, *ins, k, cap, fill,
+                                   out.data_ptr(), route.data_ptr(),
+                                   totals.data_ptr(), status.data_ptr(),
+                                   epoch, stream)
     _check(rc, "compact_record")
     compact_record.launches += 1
-    return outs, totals, route
+    return list(out.unbind(0)), totals, route
 
 
 def _launch_k7k8(dense, route, mask):
     lib = _route_library()
     B, N = mask.shape
     out = torch.empty((B, N), dtype=torch.int32, device=mask.device)
-    rc = lib.td_expand_route(dense.data_ptr(), route.data_ptr(),
-                             mask.data_ptr(), B, N, dense.shape[1],
-                             out.data_ptr(), _stream(mask.device))
+    with _on(mask.device) as stream:
+        rc = lib.td_expand_route(dense.data_ptr(), route.data_ptr(),
+                                 mask.data_ptr(), B, N, dense.shape[1],
+                                 out.data_ptr(), stream)
     _check(rc, "expand_route")
     expand_route.launches += 1
     return out

@@ -32,7 +32,7 @@ from functools import lru_cache
 import torch
 
 from .compact import (
-    _check, _require, _stream, compact_by_mask, compact_record, expand_route,
+    _check, _on, _require, compact_by_mask, compact_record, expand_route,
 )
 
 MAX_CP = 0x10FFFF
@@ -91,8 +91,10 @@ def _launch_k9(data: torch.Tensor):
     B, N = data.shape
     cp_at = torch.empty((B, N), dtype=torch.int32, device=data.device)
     is_start = torch.empty((B, N), dtype=torch.int32, device=data.device)
-    rc = lib.td_utf8_decode_block(data.data_ptr(), B, N, cp_at.data_ptr(),
-                                  is_start.data_ptr(), _stream(data.device))
+    with _on(data.device) as stream:
+        rc = lib.td_utf8_decode_block(data.data_ptr(), B, N,
+                                      cp_at.data_ptr(), is_start.data_ptr(),
+                                      stream)
     _check(rc, "utf8_decode_block")
     utf8_decode_block.launches += 1
     return cp_at, is_start

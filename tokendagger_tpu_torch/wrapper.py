@@ -9,11 +9,16 @@ surface. Backends:
   version) and decodes large id lists there with ``ops/decode.decode_ids``;
 * ``"host"`` uses the exact ``hostengine.HostEngine``;
 * ``"auto"`` sends inputs under ``_DEVICE_MIN_BYTES`` to the host engine
-  and the rest to the device.
+  and the rest to the device. A tokenizer that ``DeviceEngine`` cannot
+  serve (a pattern outside the four profiles, or a vocabulary without
+  every single-byte rank: ``engine.unsupported_reason``) encodes on the
+  host engine under "auto" and raises under "device".
 
-With ``"device"`` or ``"auto"`` and no card, construction raises; a
-device or kernel failure raises too (wrapped as ``TokenDaggerError``)
-and is never rerouted to the host. Both engines emit the same ids.
+Decoding needs only the rank -> bytes tables, so the device decode serves
+every tokenizer. With ``"device"`` or ``"auto"`` and no card,
+construction raises; a device or kernel failure raises too (wrapped as
+``TokenDaggerError``) and is never rerouted to the host. Both engines
+emit the same ids.
 """
 
 from __future__ import annotations
@@ -25,7 +30,10 @@ from typing import AbstractSet, Collection, Literal, Sequence
 import numpy as np
 import torch
 
-from .convert import EngineTables
+from .convert import (
+    EngineTables, decode_tables_from_ranks, engine_tables_from_ranks,
+)
+from .engine import DeviceEngine, unsupported_reason
 from .hostengine import HostEngine
 from .vocab import vocab_list_to_ranks
 
@@ -109,9 +117,12 @@ class Tokenizer:
         except Exception as e:  # noqa: BLE001 - mirror reference error wrapping
             raise TokenDaggerError(f"Failed to initialize engine: {e}") from e
 
+        # a static property of the tokenizer: "auto" encodes it on the host
+        self._engine_fits = unsupported_reason(pattern, ranks) is None
         self._tables = tables
         self._device = None         # DeviceEngine, built on first device use
-        self._decode_lengths = None  # numpy copy of the device's, lazily
+        self._decode = None         # decode tables on the device, lazily
+        self._decode_lengths = None  # numpy copy of their lengths
         self._sorted_bytes = None   # token_byte_values, built lazily
         # frozenset identity marks the common "disallow all specials" case
         # so the bigram prefilter groups are computed once
@@ -128,20 +139,29 @@ class Tokenizer:
 
     def _get_device(self):
         if self._device is None:
-            from .engine import DeviceEngine
-
+            tables = self._tables
+            if tables is None and self._decode is not None:
+                tables = engine_tables_from_ranks(
+                    self._mergeable_ranks, self._special_tokens,
+                    device=self.device, decode=self._decode)
             self._device = DeviceEngine(
                 self.pattern, self._mergeable_ranks, self._special_tokens,
-                device=self.device, tables=self._tables)
+                device=self.device, tables=tables)
             self._tables = self._device.tables
         return self._device
 
     def _use_device(self, nbytes: int) -> bool:
+        """Size routing, for decode and (through ``_encode_on_device``)
+        encode."""
         if self.backend == "host":
             return False
         if self.backend == "device":
             return True
         return nbytes >= self._DEVICE_MIN_BYTES
+
+    def _encode_on_device(self, nbytes: int) -> bool:
+        return self._use_device(nbytes) and (
+            self.backend == "device" or self._engine_fits)
 
     @staticmethod
     def _nbytes(text: str) -> int:
@@ -156,7 +176,7 @@ class Tokenizer:
     # ------------------------------------------------------------------
     def encode_ordinary(self, text: str) -> list[int]:
         try:
-            if self._use_device(self._nbytes(text)):
+            if self._encode_on_device(self._nbytes(text)):
                 return self._get_device().encode_ordinary_batch([text])[0]
             return self._host.encode_ordinary(text)
         except Exception as e:  # noqa: BLE001
@@ -177,7 +197,7 @@ class Tokenizer:
     def _encode_texts(self, texts: Sequence[str],
                       allowed: AbstractSet[str]) -> list[list[int]]:
         try:
-            if self._use_device(sum(self._nbytes(t) for t in texts)):
+            if self._encode_on_device(sum(self._nbytes(t) for t in texts)):
                 return self._get_device().encode_batch(list(texts), allowed)
             return [self._host.encode(t, allowed)[0] for t in texts]
         except Exception as e:  # noqa: BLE001
@@ -243,17 +263,30 @@ class Tokenizer:
     # (``ops/decode.decode_ids``); shorter lists take the host engine.
     _DECODE_VEC_MIN = 24
 
+    def _decode_tables(self):
+        """(offsets, lengths, blob, n_vocab) on ``self.device``: the
+        engine's tables where they exist, else built from the ranks alone
+        (and later handed to the engine)."""
+        if self._decode is None:
+            t = self._tables
+            self._decode = (
+                decode_tables_from_ranks(self._mergeable_ranks,
+                                         self._special_tokens,
+                                         device=self.device)
+                if t is None else (t.decode_offsets, t.decode_lengths,
+                                   t.decode_blob, t.n_vocab))
+            self._decode_lengths = self._decode[1].cpu().numpy()
+        return self._decode
+
     def _decode_bytes_device(self, ids: np.ndarray) -> bytes:
-        """``ops/decode.decode_ids`` against the device's tables; ids are
+        """``ops/decode.decode_ids`` against the decode tables; ids are
         validated on the host first (KeyError on an unknown id, as the
         host engine). Output caps are powers of two."""
         from .ops.decode import decode_ids
 
-        t = self._get_device().tables
-        if self._decode_lengths is None:
-            self._decode_lengths = t.decode_lengths.cpu().numpy()
-        if ids.min() < 0 or ids.max() >= t.n_vocab:
-            bad = ids[(ids < 0) | (ids >= t.n_vocab)][0]
+        offsets, lengths, blob, n_vocab = self._decode_tables()
+        if ids.min() < 0 or ids.max() >= n_vocab:
+            bad = ids[(ids < 0) | (ids >= n_vocab)][0]
             raise KeyError(f"Unknown token id: {int(bad)}")
         lens = self._decode_lengths[ids]
         if (lens < 0).any():
@@ -263,8 +296,7 @@ class Tokenizer:
             return b""
         cap = 1 << max(12, (total - 1).bit_length())
         out, _ = decode_ids(torch.from_numpy(ids).to(self.device),
-                            t.decode_offsets, t.decode_lengths,
-                            t.decode_blob, cap)
+                            offsets, lengths, blob, cap)
         return out[:total].cpu().numpy().tobytes()
 
     def decode_bytes(self, tokens: Sequence[int]) -> bytes:
