@@ -15,8 +15,13 @@
    ``call_ms``, one call with a synchronize after it; both beside its
    bound and the plain version's time. A library yardstick
    (``masked_select``, ``masked_scatter_``) gets its device time from a
-   torch.profiler trace, since it synchronizes on the host. K4 must run
-   one kernel per call; K1 must spread each window over many blocks.
+   torch.profiler trace, since it synchronizes on the host; a trace that
+   holds no kernel event is taken again, up to three times, and the run
+   fails if none holds one. K4 must run one kernel per call, and K2+K3
+   one per call at each of its shapes (launch calls in a trace); K1 must
+   spread each window over many blocks. K2+K3 is also timed on an edge
+   row: seven empty windows and one window that is one piece, packed and
+   byte flags.
    Then K1's byte entry on 300 windows of 1 KB, more than the card holds
    its blocks (so they run in groups), against its plain version.
 3. Holds the kernels of the public API's engine against their plain
@@ -49,7 +54,9 @@
    and with 4 MB windows of the same text plus a 5 MB digit run (one
    class run, so windows grow to 16 MB), whose ids must equal the host
    engine's.
-6. Drives run_resident, the batched general pipeline, on the card at
+6. (Run before steps 4 and 5, so that its kernels' library yardsticks
+   are traced before those long phases.) Drives run_resident, the
+   batched general pipeline, on the card at
    full width: 8 windows of 1 MB of seeded multi-script text with the
    engine's stand-in vocabulary, once with the explicit capacity 3.0 and
    once with the auto capacity (both hot routes: hot codepoints and hot
@@ -64,7 +71,8 @@
    (K5+K6 must run one kernel per call); and K9, K1's codepoint entry
    (all four profiles), K2+K3 and K4 on the inputs each run gave them,
    with an edge row each. Every kernel's times at the path's shapes join
-   its row of the kernels line.
+   its row of the kernels line (``ms_by_shape`` and kin, K2+K3's
+   ``library_ms_by_shape`` and ``launches_per_call_by_shape`` too).
 7. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
@@ -327,23 +335,63 @@ def timings(fn, plain, n_bytes: float, n_ops: float,
                 bound_by=bby)
 
 
-def library(fn, what: str) -> dict:
+def library(fn, what: str, tries: int = 3) -> dict:
     """A library yardstick: device time from a trace, synchronized call
-    time, and what it computes."""
-    return dict(library_ms=traced(fn)[0], library_call_ms=median_ms(fn),
-                library=what)
+    time, and what it computes. A trace that holds no kernel event is
+    taken again, up to ``tries`` traces; fails if none holds one."""
+    for n in range(1, tries + 1):
+        ms = traced(fn)[0]
+        if ms is not None:
+            return dict(library_ms=ms, library_call_ms=median_ms(fn),
+                        library=what, library_traces=n)
+    raise AssertionError(f"{what}: {tries} traces held no kernel event")
+
+
+K23_LAUNCHES = 1   # kernel launches per compact_piece_keys call (compact.cu)
+
+
+def time_k23(starts, d, nb, p_cap: int, packed: bool) -> dict:
+    """K2+K3's timings at one shape (``timings``), masked_select's
+    yardstick and the kernel launches of one call read from a trace;
+    fails unless a call issues K23_LAUNCHES launches. The bound: the
+    flags, each piece's first min(length, 16) bytes and nbytes read, six
+    int32 per slot and n_pieces written; B * N operations."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+
+    B, N = d.shape
+
+    def fn():
+        return CP.compact_piece_keys(starts, d, nb, p_cap, packed=packed)
+
+    key_bytes = int(torch.clamp(fn()[1], max=16).sum())
+    flag_bytes = B * N / 8 if packed else B * N
+    t = timings(fn, lambda: CP.compact_piece_keys_plain(
+        starts, d, nb, p_cap, packed=packed),
+        flag_bytes + key_bytes + 8 * B + 24 * B * p_cap, B * N)
+    n_launch = traced(fn)[2]
+    if n_launch != K23_LAUNCHES:
+        raise AssertionError(f"K2+K3 issued {n_launch} kernel launches in "
+                             f"one call at {(B, N)}, not {K23_LAUNCHES}")
+    t["launches_per_call"] = n_launch
+    flags = BP.unpack_mask(starts) if packed else starts.to(torch.bool)
+    idx = torch.arange(N, device=d.device).expand(B, N)
+    t.update(library(lambda: torch.masked_select(idx, flags),
+                     "masked_select of the start positions only (no keys, "
+                     "no lengths)"))
+    return t
 
 
 def show(t: dict) -> str:
     s = (f"{t['ms']:.4f} ms on the device ({t['call_ms']:.4f} ms per "
          f"synchronized call; plain {t['plain_ms']:.3f} ms, bound "
          f"{t['bound_ms']:.5f} ms by {t['bound_by']})")
+    if "launches_per_call" in t:
+        s += f"; {t['launches_per_call']:g} kernel launch per call (trace)"
     if "library" in t:
-        lib_ms = t["library_ms"]
-        s += (f"; {t['library']}: "
-              + ("not measured (no kernel event in its trace)"
-                 if lib_ms is None else f"{lib_ms:.4f} ms on the device")
-              + f", {t['library_call_ms']:.4f} ms per call")
+        s += (f"; {t['library']}: {t['library_ms']:.4f} ms on the device "
+              f"({t['library_traces']} trace), {t['library_call_ms']:.4f} "
+              "ms per call")
     return s
 
 
@@ -421,24 +469,37 @@ def check_kernels(seed: int, dev) -> list[dict]:
         raise AssertionError("K2+K3 differs from its plain version")
     if not (max(npc) > p_cap and min(npc) == 0):
         raise AssertionError("edge windows did not cover overflow and empty")
-    k23_err = err
-    idx = torch.arange(N, device=dev).expand(B, N)
-    key_bytes = int(torch.clamp(got[1], max=16).sum())
-    t = timings(lambda: CP.compact_piece_keys(starts, by, nb, p_cap,
-                                              packed=True),
-                lambda: CP.compact_piece_keys_plain(starts, by, nb, p_cap,
-                                                    packed=True),
-                B * N / 8 + key_bytes + 4 * B + 24 * B * p_cap + 4 * B, B * N)
-    t.update(library(lambda: torch.masked_select(idx, flags),
-                     "masked_select of the start positions only (no keys, "
-                     "no lengths)"))
-    print(f"K2+K3 compact_piece_keys: {show(t)}")
+    t = time_k23(starts, by, nb, p_cap, True)
+    print(f"K2+K3 compact_piece_keys [stream {(B, N)} packed flags, "
+          f"{sum(npc)} pieces]: {show(t)}")
+    # edge rows: seven empty windows and one window that is one piece
+    # (window 3, N letters): one block finds that piece's end, and the
+    # fill blocks write every other slot
+    nb_edge = torch.zeros_like(nb)
+    nb_edge[3] = N
+    edge_words = BP.piece_starts_bits(by, nb_edge)
+    edge = {}
+    for packed, st in ((True, edge_words),
+                       (False, BP.unpack_mask(edge_words))):
+        e = max_abs_err(
+            CP.compact_piece_keys(st, by, nb_edge, p_cap, packed=packed),
+            CP.compact_piece_keys_plain(st, by, nb_edge, p_cap,
+                                        packed=packed))
+        err = max(err, e)
+        at = (f"edge (8, {N}) {'packed' if packed else 'byte'} flags: 7 "
+              "empty windows + 1 one-piece window")
+        edge[at] = time_k23(st, by, nb_edge, p_cap, packed)
+        print(f"K2+K3 compact_piece_keys [{at}]: max_abs_err {e}; "
+              f"{show(edge[at])}")
+    if err:
+        raise AssertionError("K2+K3 differs from its plain version on the "
+                             "edge rows")
     rows.append(dict(
         name="compact_piece_keys", route="cuda",
         source="tokendagger_tpu_torch/csrc/compact.cu",
         replaces="tokendagger_tpu/ops/compact_pallas.py:288 (compact_tiles) "
                  "+ :561 (degap_keys)",
-        max_abs_err=k23_err, **t))
+        max_abs_err=err, **t, **by_shape(edge)))
 
     # ---- K4: miss-span compaction at finalize's shapes ----
     sb, pl = got[0], got[1]
@@ -603,7 +664,8 @@ def check_engine_kernels(seed: int, dev) -> list[dict]:
     return rows
 
 
-SHAPE_KEYS = ("ms", "call_ms", "plain_ms", "bound_ms", "blocks_per_window")
+SHAPE_KEYS = ("ms", "call_ms", "plain_ms", "bound_ms", "blocks_per_window",
+              "library_ms", "launches_per_call")
 
 
 def by_shape(times: dict) -> dict:
@@ -938,12 +1000,8 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
         )
         print(f"engine stage ms (one {label} window, {npc} pieces, p_cap "
               f"{p_cap}): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
-        key_bytes = int(torch.clamp(keys[1], max=16).sum())
         at = f"engine {label} (1, {N}) byte flags"
-        k23_times[at] = timings(
-            lambda: CP.compact_piece_keys(stb, d, nb, p_cap),
-            lambda: CP.compact_piece_keys_plain(stb, d, nb, p_cap),
-            N + key_bytes + 8 + 24 * p_cap, N)
+        k23_times[at] = time_k23(stb, d, nb, p_cap, False)
         print(f"K2+K3 compact_piece_keys [{at}, {npc} pieces]: "
               f"{show(k23_times[at])}")
         shapes = [(f"engine decode (1, {N}) k 2", (arrs, is_lead, 0))]
@@ -1223,8 +1281,7 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
              "(regap_replay) + :728 (expand_tiles_replay)", err7, t7)):
         rows[nm] = dict(
             name=nm, route="cuda", source="tokendagger_tpu_torch/csrc/route.cu",
-            replaces=src_, max_abs_err=err, **t["decode"], **by_shape(t),
-            library_ms_by_shape={k: v["library_ms"] for k, v in t.items()})
+            replaces=src_, max_abs_err=err, **t["decode"], **by_shape(t))
 
     # ---- K1's class-word entry: the auto run's class words ----
     words, m, _ = inputs[k1[0]]
@@ -1331,15 +1388,7 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
                 CP.compact_piece_keys_plain(starts, d, n, p_cap,
                                             packed=packed))
                 for n in (nb, empty))
-            got = CP.compact_piece_keys(starts, d, nb, p_cap, packed=packed)
-            key_bytes = int(torch.clamp(got[1], max=16).sum())
-            flag_bytes = B * N / 8 if packed else B * N
-            t = timings(lambda: CP.compact_piece_keys(starts, d, nb, p_cap,
-                                                      packed=packed),
-                        lambda: CP.compact_piece_keys_plain(
-                            starts, d, nb, p_cap, packed=packed),
-                        flag_bytes + key_bytes + 8 * B + 24 * B * p_cap,
-                        B * N)
+            t = time_k23(starts, d, nb, p_cap, packed)
         else:                                       # compact_by_mask
             arrays, mask, fill = args
             B, P = shape = mask.shape
@@ -1402,13 +1451,16 @@ def main() -> int:
     # each path runs with the counts set to 0 just before it; a kernel on
     # several paths reports the sum of its launches as "launches", and
     # each path's count in "launches_by_path"
-    stream = run_stream(args.seed, args.mb, "cuda")
-    engine, engine_errs, engine_times = run_engine(args.seed,
-                                                   args.engine_mb, "cuda")
+    # the resident path first: its kernels' library yardsticks are traced
+    # before the long stream and engine phases
     resident, inputs = run_resident_phase(args.seed, "cuda")
     rows += check_resident_kernels(inputs["auto cap"], "cuda")
     resident_errs, resident_times = check_resident_shared(inputs, args.seed,
                                                           "cuda")
+    del inputs
+    stream = run_stream(args.seed, args.mb, "cuda")
+    engine, engine_errs, engine_times = run_engine(args.seed,
+                                                   args.engine_mb, "cuda")
     for r in rows:
         name = r["name"]
         by_path = dict(stream=stream.get(name, 0),
@@ -1426,9 +1478,10 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "call_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_call_ms",
-            "library", "passes", "blocks_per_window", "ms_by_shape",
-            "call_ms_by_shape", "plain_ms_by_shape", "bound_ms_by_shape",
-            "library_ms_by_shape", "blocks_per_window_by_shape")
+            "library", "library_traces", "launches_per_call", "passes",
+            "blocks_per_window", "ms_by_shape", "call_ms_by_shape",
+            "plain_ms_by_shape", "bound_ms_by_shape", "library_ms_by_shape",
+            "launches_per_call_by_shape", "blocks_per_window_by_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
 

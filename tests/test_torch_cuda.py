@@ -107,18 +107,86 @@ def test_k1_past_resident_blocks_equals_plain(dev, profile):
         assert torch.equal(got, plain(xs, ys, profile=profile)), fn
 
 
-@pytest.mark.parametrize("packed", [False, True])
-def test_k2k3_equals_plain(dev, packed):
-    n = 1 << 15
-    by, nb = _windows(3, n, dev)
-    words = BP.piece_starts_bits(by, nb)
-    flags = words if packed else BP.unpack_mask(words)
-    p_cap = n // 3 // 128 * 128
-    got = CP.compact_piece_keys(flags, by, nb, p_cap, packed=packed)
-    want = CP.compact_piece_keys_plain(flags, by, nb, p_cap, packed=packed)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert int(got[6].max()) > p_cap  # the overflow window
+def _k2k3_rows(B, N, seed, dev):
+    """B windows of N bytes cycling five kinds: prose with a whitespace run
+    of at least 64 KB (or N/4 below 256 KB) crossing tiles and a ragged
+    length; full prose; an empty window; one piece (N letters);
+    punctuation that overflows. Returns the byte windows, their lengths
+    and their start flags as bytes (K1's, so N need not be a multiple of
+    1024: they come from the windows padded to one)."""
+    rng = np.random.default_rng(seed)
+    prose = prose_text(rng, 1 << 16)
+    fill = (prose * (N // len(prose) + 1))[:N]
+    run = max(1 << 16, N // 8) if N >= 1 << 18 else N // 4
+    kinds = [(fill[: N // 3] + " " * run + fill)[:N], fill, "", "a" * N,
+             "! " * (N // 2)]
+    texts = [kinds[b % len(kinds)] for b in range(B)]
+    by, nb = stage(texts, N, rng)
+    nb[0] = min(nb[0], N - 77)              # not a multiple of 32
+    nb[4::5] -= 5
+    Np = -(-N // 1024) * 1024
+    pad = np.zeros((B, Np), np.uint8)
+    pad[:, :N] = by
+    by, nb = torch.from_numpy(by).to(dev), torch.from_numpy(nb).to(dev)
+    words = BP.piece_starts_bits(torch.from_numpy(pad).to(dev), nb)
+    return by, nb, BP.unpack_mask(words)[:, :N].contiguous()
+
+
+# (flags, B, N): packed words need N % 1024 == 0, byte flags N % 32 == 0
+K2K3_CASES = [(f, B, N) for B, N in [(1, 1024), (3, 1024), (300, 1024),
+                                     (1, 1 << 20), (3, 1 << 20), (1, 1 << 22),
+                                     (3, 32 * 1023), (300, 32 * 33)]
+              for f in ("bool", "uint8", "packed")
+              if f != "packed" or N % 1024 == 0]
+
+
+@pytest.mark.parametrize("flags,B,N", K2K3_CASES)
+def test_k2k3_equals_plain(dev, flags, B, N):
+    """All seven outputs equal the plain version, with p_cap one below,
+    at and one above the first window's piece count (the other windows
+    below and above it: empty, one piece, overflowing punctuation)."""
+    by, nb, st = _k2k3_rows(B, N, B + N, dev)
+    if flags == "uint8":
+        st = st.to(torch.uint8) * 3
+    elif flags == "packed":
+        st = BP.pack_mask(st)
+    n0 = int(CP.compact_piece_keys_plain(st, by, nb, N + 1,
+                                         packed=flags == "packed")[6][0])
+    assert n0 > 1
+    for p_cap in (n0 - 1, n0, n0 + 1):
+        got = CP.compact_piece_keys(st, by, nb, p_cap,
+                                    packed=flags == "packed")
+        want = CP.compact_piece_keys_plain(st, by, nb, p_cap,
+                                           packed=flags == "packed")
+        torch.cuda.synchronize()
+        for name, g, w in zip(("start_b", "piece_len", "k0", "k1", "k2",
+                               "k3", "n_pieces"), got, want):
+            assert torch.equal(g, w), (name, p_cap)
+
+
+def test_k2k3_streams_and_epochs(dev):
+    """Back-to-back calls on one stream reuse its status words under a new
+    epoch; calls on a second stream, queued while the first still runs,
+    get their own words. Every result equals the plain version."""
+    by, nb, st = _k2k3_rows(3, 1 << 20, 7, dev)
+    words = BP.pack_mask(st)
+    p_cap = (1 << 20) // 3
+    want = {p: CP.compact_piece_keys_plain(words if p else st, by, nb, p_cap,
+                                           packed=p) for p in (False, True)}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(2):
+        for p in (False, True):
+            got.append((p, CP.compact_piece_keys(words if p else st, by, nb,
+                                                 p_cap, packed=p)))
+            with torch.cuda.stream(side):
+                got.append((p, CP.compact_piece_keys(
+                    words if p else st, by, nb, p_cap, packed=p)))
+    torch.cuda.synchronize()
+    for p, g in got:
+        for a, b in zip(g, want[p]):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("k", [1, 2, 8])

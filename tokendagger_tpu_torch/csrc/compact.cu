@@ -9,35 +9,73 @@
 // On the TPU the compaction was a displacement butterfly inside VMEM tiles,
 // written at row-quantized offsets and degapped by a second kernel, because
 // Mosaic had no usable scatter or in-kernel prefix sum. Here a compaction is
-// what it is on any GPU. K2+K3: a count pass (one block per 8192 elements,
-// one popcount per 32) and a scatter pass (the same blocks add the counts of
-// the tiles before them, scan their threads' counts, and write each kept
-// element at its rank). Output is dense at once, so there is no gap to
-// remove. The piece geometry (length = next start - start, the last live
-// piece ending at nbytes) and the four key words (the piece's first 16
-// bytes, masked to its length) are one more pass over the p_cap slots.
-// K4: one pass (mask_compact_kernel): each block ranks its tile and finds
-// the count before it by decoupled look-back over per-tile status words,
-// so every mask byte is read once, in 16-byte loads, and every store of a
-// warp lands on consecutive slots. Measured by chip_smoke.py (H100 80GB
-// HBM3, 700 W): 0.031 ms at (8, 349,568) with k = 2, against a 0.008 ms
-// bound and masked_select's 0.057 ms; 0.055 ms at (1, 4,194,304), bound
-// 0.020 ms. At these sizes every block's chain of latencies (fill, fence,
-// status, look-back, the kept loads) outweighs its bytes.
+// what it is on any GPU: each tile's count before it comes from a
+// decoupled look-back over per-tile status words (lookback.cuh), and the
+// output is dense at once, so there is no gap to remove.
 //
-// What bounds them on the H100: bytes. K2+K3 read the packed flags (N/8
-// bytes per window) and write 6 int32 per slot (24 * p_cap bytes); K4
-// reads the mask and each kept value once and writes every output slot
-// (kept slots twice: the fill first). Their work per byte is a few
-// integer operations, far below the card's ratio of operations to bytes.
+// What bounds them on the H100: bytes. K2+K3 read the start flags (N/8
+// bytes per window packed, N as bytes), each piece's first bytes, and write
+// 6 int32 per slot (24 * p_cap bytes, most of the traffic); K4 reads the
+// mask and each kept value once and writes every output slot (kept slots
+// twice: the fill first). Their work per byte is a few integer operations,
+// far below the card's ratio of operations to bytes.
+//
+// K2+K3 is one launch (piece_keys_kernel, one instance per flag kind) of
+// B x T tile blocks of 8192 chars, then B x F fill blocks of 2048 slots.
+//  - A tile block reads its flags once: byte flags as two 16-byte loads
+//    per thread (32 chars); packed plane-major words by whole warps, each
+//    load 32 consecutive words (one 128-byte line) and a ballot of plane
+//    j's bit giving 32 chars' flags. A tile is 8192 consecutive chars, so
+//    it owns one plane's bit of each word it loads: a tile across all 32
+//    planes would need every plane's total, the row's last word, before it
+//    could rank a piece (a forward wait on blocks that may not be
+//    resident). Each word comes from device memory once and from L2 for
+//    the 32 tiles that own its bits.
+//  - Warp and block scans rank the tile's starts; their offsets go to
+//    shared memory in rank order. The first warp publishes the tile's
+//    first start (a tagged word of its own) and count, looks back for the
+//    count before it, and publishes its inclusive count (the row's last
+//    tile: n_pieces). Meanwhile the second warp finds the first start
+//    after the tile (the end of its last piece) from the following tiles'
+//    published first starts, or, for a tile not yet published, from its
+//    flags (read a second time then, up to its first start): no block
+//    waits on a later one. The other warps stage the tile's bytes and the
+//    16 after it in shared memory.
+//  - Thread k then writes piece k: start, length (the next offset, the
+//    look-ahead's start, or nbytes for the row's last piece and for slot
+//    p_cap - 1), and four key words from five shared-memory words and
+//    funnel shifts, masked to the length and to the row's N bytes.
+//    Consecutive threads read consecutive offsets and store to
+//    consecutive slots.
+//  - Fill block f waits for the inclusive count of its row's last tile
+//    and writes its share of the dead slots [min(n_pieces, p_cap), p_cap):
+//    start nbytes, length and keys 0. Each slot is written once, by a
+//    tile or by a fill block. The fill blocks come after every tile, so
+//    none holds a slot while tiles wait to be scheduled.
+// Measured by chip_smoke.py (H100 80GB HBM3, 700 W): 0.041 ms at the
+// stream's (8, 1,048,576) packed flags with p_cap 349,568 (bound 0.022
+// ms), 0.042 and 0.037 ms at the resident byte flags with p_cap 349,568
+// and 262,144 (bounds 0.025 and 0.020 ms), 0.023 ms at (1, 4,194,304)
+// (bound 0.013 ms), where the three launches it replaced read 0.127,
+// 0.067, 0.063 and 0.038 ms. What holds it there (tools/k23_variants.py):
+// the piece stores, at about 70% of the memory rate, and each tile's
+// look-back wait.
+// K4: one pass (mask_compact_kernel): each block ranks its tile and finds
+// the count before it by look-back, so every mask byte is read once, in
+// 16-byte loads, and every store of a warp lands on consecutive slots.
+// Measured by chip_smoke.py (H100 80GB HBM3, 700 W): 0.031 ms at (8,
+// 349,568) with k = 2, against a 0.008 ms bound and masked_select's 0.057
+// ms; 0.055 ms at (1, 4,194,304), bound 0.020 ms. At these sizes every
+// block's chain of latencies (fill, fence, status, look-back, the kept
+// loads) outweighs its bytes.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "lookback.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 32;
-constexpr int kTile = kThreads * kPerThread;
 constexpr int kMaxArrays = 8;
 
 __device__ __forceinline__ uint32_t valid_word(int u, int m) {
@@ -47,134 +85,246 @@ __device__ __forceinline__ uint32_t valid_word(int u, int m) {
   return (1u << (uint32_t)t) - 1u;
 }
 
-// Exclusive block scan of one int per thread; *total gets the block sum.
-__device__ int block_excl_scan(int v, int* total) {
-  __shared__ int s_warp[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int x = v;
+// ---- K2+K3 ----
+
+constexpr int kKeyThreads = 256;
+constexpr int kKeyWarps = kKeyThreads / 32;
+constexpr int kKeyTile = 32 * kKeyThreads;  // chars per tile block
+constexpr int kFillSlots = 2048;            // dead slots per fill block
+constexpr int kNone = INT_MAX;              // no start found
+
+// Start flags of the 32 groups u0 .. u0 + 31 of a row (group u: chars
+// 32u .. 32u + 31, bit i = char 32u + i), zero at and beyond lim (<= N);
+// lane l returns group u0 + l. The whole warp calls it. Packed: the row's
+// N/32 plane-major words, bit j of word w = char j * (N/32) + w (N a
+// multiple of 1024, so a group lies in one plane); else N flag bytes.
+template <bool kPacked>
+__device__ __forceinline__ uint32_t group_masks(const uint8_t* frow, int N,
+                                                int u0, int lim) {
+  const int lane = threadIdx.x & 31;
+  if (kPacked) {
+    const uint32_t* W = (const uint32_t*)frow;
+    const int G = N >> 10;                 // groups per plane
+    const int j0 = u0 / G, r0 = u0 - j0 * G;
+    uint32_t w[32];
+    int j = j0, r = r0;
+#pragma unroll
+    for (int g = 0; g < 32; ++g) {         // 32 coalesced 128-byte loads
+      w[g] = 32 * (u0 + g) < lim ? __ldg(W + 32 * r + lane) : 0u;
+      if (++r == G) r = 0;
+    }
+    uint32_t mine = 0u;
+    j = j0;
+    r = r0;
+#pragma unroll
+    for (int g = 0; g < 32; ++g) {
+      const uint32_t bal = __ballot_sync(kFull, (w[g] >> (j & 31)) & 1u);
+      mine = lane == g ? bal : mine;
+      if (++r == G) {
+        r = 0;
+        ++j;
+      }
+    }
+    return mine & valid_word(u0 + lane, lim);
+  }
+  const int u = u0 + lane;
+  if (32LL * u >= lim) return 0u;
+  const uint8_t* p = frow + 32 * u;
+  uint32_t m = 0u;
+  if (((uintptr_t)p & 15u) == 0u) {
+    const uint4 a = __ldg((const uint4*)p), c = __ldg((const uint4*)p + 1);
+    m = nonzero4(a.x) | nonzero4(a.y) << 4 | nonzero4(a.z) << 8 |
+        nonzero4(a.w) << 12 | nonzero4(c.x) << 16 | nonzero4(c.y) << 20 |
+        nonzero4(c.z) << 24 | nonzero4(c.w) << 28;
+  } else {
+    for (int i = 0; i < 32; ++i) m |= (p[i] != 0 ? 1u : 0u) << i;
+  }
+  return m & valid_word(u, lim);
+}
+
+// The first start below lim in the tiles after tile t, or kNone; by one
+// whole warp, without waiting on any block. A tile publishes its first
+// start (-1 for none) under the launch's tag in `first`; a tile that has
+// not yet done so is read from its flags.
+template <bool kPacked>
+__device__ int next_start(const uint8_t* frow, int N, int lim, int t, int T,
+                          const unsigned long long* first, uint32_t epoch) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t tag = epoch << 2 | kAgg;
+  for (int i = t + 1; (long long)i * kKeyTile < lim;) {
+    const int ti = i + lane;
+    int f = -3;                  // past the row's live chars: no start
+    if (ti < T && (long long)ti * kKeyTile < lim) {
+      const unsigned long long s =
+          *(volatile const unsigned long long*)(first + ti);
+      f = (uint32_t)(s >> 32) == tag ? (int)(uint32_t)s
+                                     : -2;   // not yet published
+    }
+    const uint32_t stop = __ballot_sync(kFull, f != -1);
+    if (stop == 0u) {            // 32 published tiles without a start
+      i += 32;
+      continue;
+    }
+    const int l = __ffs(stop) - 1;
+    const int fl = __shfl_sync(kFull, f, l);
+    if (fl >= 0) return fl;
+    if (fl == -3) return kNone;
+    i += l;                      // tile i is not yet published: its flags
+    for (int q = 0; q < kKeyWarps; ++q) {
+      const int u0 = i * kKeyThreads + 32 * q;
+      const uint32_t m = group_masks<kPacked>(frow, N, u0, lim);
+      const uint32_t any = __ballot_sync(kFull, m != 0u);
+      if (any) {
+        const int a = __ffs(any) - 1;
+        return 32 * (u0 + a) + __ffs(__shfl_sync(kFull, m, a)) - 1;
+      }
+    }
+    ++i;
+  }
+  return kNone;
+}
+
+// Mask of the low `n` bytes of a word (n clamped to [0, 4]).
+__device__ __forceinline__ uint32_t byte_mask(int n) {
+  return n >= 4 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
+}
+
+// Block i (blockIdx.x): tile i % T of row i / T for i < B * T, else fill
+// block f = i - B * T, share f % F of row f / F (see the header).
+template <bool kPacked>
+__global__ void __launch_bounds__(kKeyThreads)
+piece_keys_kernel(const uint8_t* flags, const uint8_t* data,
+                  const int32_t* nbytes, int B, int N, int T, int F,
+                  int p_cap, int32_t* out, long long plane,
+                  int32_t* n_pieces, unsigned long long* status,
+                  unsigned long long* first, uint32_t epoch) {
+  __shared__ uint16_t s_off[kKeyTile];           // starts, in rank order
+  __shared__ __align__(16) uint32_t s_data[kKeyTile / 4 + 4];  // + 16 B
+  __shared__ int s_warp[kKeyWarps], s_wfirst[kKeyWarps];
+  __shared__ int s_base, s_next, s_total;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if (blockIdx.x >= (unsigned)(B * T)) {
+    const int f = blockIdx.x - B * T, b = f / F;
+    const unsigned long long* last = status + (size_t)b * T + T - 1;
+    if (tid == 0) {
+      const uint32_t tag_incl = epoch << 2 | kIncl;
+      unsigned long long s;
+      while (((s = *(volatile const unsigned long long*)last) >> 32) !=
+             tag_incl)
+        __nanosleep(256);
+      s_total = (int)(uint32_t)s;
+    }
+    __syncthreads();
+    const int lo = (f - b * F) * kFillSlots;
+    const int from = max(lo, min(s_total, p_cap));
+    const int hi = min(lo + kFillSlots, p_cap);
+    if (from < hi) {
+      int32_t* o = out + (size_t)b * p_cap;
+      fill_range(o, from, hi, nbytes[b]);
+      for (int a = 1; a < 6; ++a) fill_range(o + a * plane, from, hi, 0);
+    }
+    return;
+  }
+
+  const int b = blockIdx.x / T, t = blockIdx.x - b * T;
+  const int nb = nbytes[b];
+  const int lim = min(nb, N);   // chars that may start a live piece
+  const int t0 = t * kKeyTile;
+  unsigned long long* st = status + (size_t)b * T;
+  const uint8_t* frow = flags + (size_t)b * (kPacked ? N / 8 : N);
+  const int u0 = t * kKeyThreads + 32 * warp;  // the warp's first group
+  const uint32_t m = group_masks<kPacked>(frow, N, u0, lim);
+  const int c = __popc(m);
+  int x = c;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    const int y = __shfl_up_sync(kFull, x, d);
     if (lane >= d) x += y;
   }
-  if (lane == 31) s_warp[warp] = x;
+  const uint32_t any = __ballot_sync(kFull, c != 0);
+  const int a = any ? __ffs(any) - 1 : 0;
+  const uint32_t ma = __shfl_sync(kFull, m, a);
+  if (lane == 31) {
+    s_warp[warp] = x;
+    s_wfirst[warp] = any ? 32 * (u0 + a) + __ffs(ma) - 1 : -1;
+  }
   __syncthreads();
+  int before = 0, total = 0, first_start = -1;
+#pragma unroll
+  for (int w = 0; w < kKeyWarps; ++w) {
+    const int v = s_warp[w];
+    before += w < warp ? v : 0;
+    if (first_start < 0 && v) first_start = s_wfirst[w];
+    total += v;
+  }
+
   if (warp == 0) {
-    int w = lane < nw ? s_warp[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, w, d);
-      if (lane >= d) w += y;
+    if (lane == 0)
+      put_status(first + (size_t)b * T + t, epoch << 2 | kAgg,
+                 total ? first_start : -1);
+    const int base = look_back(st, t, total, epoch);
+    if (lane == 0) {
+      s_base = base;
+      if (t == T - 1) n_pieces[b] = base + total;
     }
-    __syncwarp();
-    if (lane < nw) s_warp[lane] = w;
+  } else if (warp == 1) {
+    const int nxt = total ? next_start<kPacked>(
+                                frow, N, lim, t, T, first + (size_t)b * T,
+                                epoch)
+                          : kNone;
+    if (lane == 0) s_next = nxt;
+  } else if (total) {           // the tile's bytes and the 16 after it
+    const uint8_t* drow = data + (size_t)b * N;
+    const bool aligned = ((uintptr_t)drow & 15u) == 0u;
+    for (int q = tid - 64; q <= kKeyTile / 16; q += kKeyThreads - 64) {
+      const int at = t0 + 16 * q;   // N % 32 == 0: a chunk is in or out
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (at < N && aligned) {
+        v = __ldg((const uint4*)(drow + at));
+      } else if (at < N) {
+        uint32_t wd[4] = {0u, 0u, 0u, 0u};
+        for (int i = 0; i < 16; ++i)
+          wd[i >> 2] |= (uint32_t)drow[at + i] << (8 * (i & 3));
+        v = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+      }
+      *(uint4*)(s_data + 4 * q) = v;
+    }
   }
+  // the offsets of this thread's starts, in rank order
+  for (uint32_t mm = m, p = before + x - c; mm; mm &= mm - 1u)
+    s_off[p++] = (uint16_t)(32 * tid + __ffs(mm) - 1);
   __syncthreads();
-  const int before = warp ? s_warp[warp - 1] : 0;
-  *total = s_warp[nw - 1];
-  __syncthreads();  // s_warp is reused by the next call
-  return before + x - v;
-}
+  if (total == 0) return;
 
-// Sum of counts[0 .. n) by the whole block.
-__device__ int block_sum_prefix(const int* counts, int n) {
-  int v = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) v += counts[i];
-  int total;
-  block_excl_scan(v, &total);
-  return total;
-}
-
-// Start flags of chars 32u .. 32u+31 below nbytes, bit t = char 32u+t.
-// packed: (N/32) plane-major words, bit j of word w = char j*C + w.
-__device__ __forceinline__ uint32_t start_bits(const void* flags, int packed,
-                                               int N, int u, int nbytes) {
-  if (32 * u >= N) return 0u;
-  uint32_t m = 0u;
-  if (packed) {
-    const uint32_t* W = (const uint32_t*)flags;
-    const int C = N / 32;
-    const int j = (32 * u) / C, w0 = (32 * u) % C;
-#pragma unroll 8
-    for (int t = 0; t < 32; ++t) m |= ((W[w0 + t] >> j) & 1u) << t;
-  } else {
-    const uint32_t* d4 = (const uint32_t*)flags + 8 * u;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const uint32_t four = d4[q];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        m |= (((four >> (8 * k)) & 0xFFu) != 0u ? 1u : 0u) << (4 * q + k);
-    }
-  }
-  return m & valid_word(u, nbytes);
-}
-
-__global__ void __launch_bounds__(kThreads)
-starts_count_kernel(const void* flags, int packed, const int32_t* nbytes,
-                    int N, int T, int32_t* counts) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  const size_t fstride = packed ? (size_t)N / 8 : (size_t)N;
-  const void* f = (const uint8_t*)flags + (size_t)b * fstride;
-  const int u = t * kThreads + threadIdx.x;
-  const int c = __popc(start_bits(f, packed, N, u, nbytes[b]));
-  int total;
-  block_excl_scan(c, &total);
-  if (threadIdx.x == 0) counts[b * T + t] = total;
-}
-
-__global__ void __launch_bounds__(kThreads)
-starts_scatter_kernel(const void* flags, int packed, const int32_t* nbytes,
-                      int N, int T, const int32_t* counts, int p_cap,
-                      int32_t* start_b, int32_t* n_pieces) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  const size_t fstride = packed ? (size_t)N / 8 : (size_t)N;
-  const void* f = (const uint8_t*)flags + (size_t)b * fstride;
-  const int base = block_sum_prefix(counts + b * T, t);
-  const int u = t * kThreads + threadIdx.x;
-  uint32_t m = start_bits(f, packed, N, u, nbytes[b]);
-  int total;
-  int pos = base + block_excl_scan(__popc(m), &total);
-  int32_t* sb = start_b + (size_t)b * p_cap;
-  while (m && pos < p_cap) {
-    const int bit = __ffs(m) - 1;
-    sb[pos++] = 32 * u + bit;
-    m &= m - 1u;
-  }
-  if (t == T - 1 && threadIdx.x == 0) n_pieces[b] = base + total;
-}
-
-__global__ void __launch_bounds__(kThreads)
-piece_keys_kernel(const uint8_t* data, const int32_t* nbytes, int N,
-                  int p_cap, const int32_t* n_pieces, int32_t* start_b,
-                  int32_t* piece_len, int32_t* k0, int32_t* k1, int32_t* k2,
-                  int32_t* k3) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (j >= p_cap) return;
-  const int nb = nbytes[b];
-  const int kept = min(n_pieces[b], p_cap);
-  const size_t o = (size_t)b * p_cap + j;
-  uint32_t key[4] = {0u, 0u, 0u, 0u};
-  int len = 0;
-  if (j < kept) {
-    const int s = start_b[o];
-    const int e = j + 1 < kept ? start_b[o + 1] : nb;
-    len = e - s;
-    // the piece's first 16 bytes; the window's bytes end at N
-    const uint8_t* d = data + (size_t)b * N;
+  // piece k of the tile goes to slot base + k below p_cap: consecutive
+  // threads read consecutive offsets (no bank conflicts) and store to
+  // consecutive slots
+  const int base = s_base, nxt = s_next;
+  const int keep = max(0, min(total, p_cap - base));
+  int32_t* orow = out + (size_t)b * p_cap + base;
+  for (int k = tid; k < keep; k += kKeyThreads) {
+    const int o = s_off[k];
+    const int s = t0 + o;
+    const int e = base + k + 1 >= p_cap ? nb
+                  : k + 1 < total       ? t0 + s_off[k + 1]
+                  : nxt == kNone        ? nb
+                                        : nxt;
+    const int len = e - s;
     const int nk = min(min(len, 16), N - s);
-    for (int i = 0; i < nk; ++i)
-      key[i >> 2] |= (uint32_t)d[s + i] << (8 * (i & 3));
-  } else {
-    start_b[o] = nb;
+    const int wi = o >> 2;
+    const uint32_t sh = 8u * (uint32_t)(o & 3);
+    uint32_t w[5];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) w[q] = s_data[wi + q];
+    int32_t* d = orow + k;
+    d[0] = s;
+    d[plane] = len;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      d[(2 + q) * plane] = (int32_t)(__funnelshift_r(w[q], w[q + 1], sh) &
+                                     byte_mask(nk - 4 * q));
   }
-  piece_len[o] = len;
-  k0[o] = (int32_t)key[0];
-  k1[o] = (int32_t)key[1];
-  k2[o] = (int32_t)key[2];
-  k3[o] = (int32_t)key[3];
 }
 
 // ---- K4 ----
@@ -182,26 +332,10 @@ piece_keys_kernel(const uint8_t* data, const int32_t* nbytes, int N,
 constexpr int kMaskThreads = 256;
 constexpr int kMaskVec = 16;                        // mask bytes per thread
 constexpr int kMaskTile = kMaskThreads * kMaskVec;  // elements per block
-constexpr uint32_t kAgg = 1u, kIncl = 2u;           // tile status flags
 
 struct Ins {
   const int32_t* p[kMaxArrays];
 };
-
-// Bit i set where byte i of x is nonzero (i < 4).
-__device__ __forceinline__ uint32_t nonzero4(uint32_t x) {
-  x |= x >> 4;
-  x |= x >> 2;
-  x |= x >> 1;
-  return (((x & 0x01010101u) * 0x01020408u) >> 24) & 0xFu;
-}
-
-// A tile's status: tag (epoch << 2 | flag) above, its count below.
-__device__ __forceinline__ void put_status(unsigned long long* s,
-                                           uint32_t tag, int v) {
-  *(volatile unsigned long long*)s =
-      (unsigned long long)tag << 32 | (uint32_t)v;
-}
 
 // One block per tile of kMaskTile elements of a row, tiles of a row in
 // block order (a block waits only on blocks launched before it):
@@ -272,35 +406,8 @@ mask_compact_kernel(const uint8_t* mask, int P, int T, Ins in, int k,
     }
     const int total = __shfl_sync(0xFFFFFFFFu, ws, nw - 1);
     if (lane < nw) s_warp[lane] = ws - wv;
-    const uint32_t tag_agg = epoch << 2 | kAgg, tag_incl = epoch << 2 | kIncl;
-    unsigned long long* st = status + (size_t)b * T;
-    int excl = 0;
-    if (t > 0) {
-      if (lane == 0) put_status(st + t, tag_agg, total);
-      for (int pred = t - 1;; pred -= 32) {
-        const int i = pred - lane;
-        unsigned long long s = 0ull;
-        uint32_t tag = tag_incl;
-        if (i >= 0) {
-          do {
-            s = *(volatile unsigned long long*)(st + i);
-            tag = (uint32_t)(s >> 32);
-          } while (tag != tag_agg && tag != tag_incl);
-        }
-        const uint32_t incl = __ballot_sync(0xFFFFFFFFu, tag == tag_incl);
-        const int first = incl ? __ffs(incl) - 1 : 31;
-        int v = lane <= first && i >= 0 ? (int)(uint32_t)s : 0;
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1)
-          v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
-        excl += v;
-        if (incl) break;
-      }
-    }
-    if (lane == 0) {
-      put_status(st + t, tag_incl, excl + total);
-      s_base = excl;
-    }
+    const int excl = look_back(status + (size_t)b * T, t, total, epoch);
+    if (lane == 0) s_base = excl;
     __threadfence();
   }
   __syncthreads();
@@ -327,31 +434,38 @@ mask_compact_kernel(const uint8_t* mask, int P, int T, Ins in, int k,
 
 }  // namespace
 
+
 extern "C" {
 
-int td_compact_tiles(int n) { return (n + kTile - 1) / kTile; }
+// Status words (64-bit) td_compact_piece_keys needs for B windows of N
+// chars: a status and a first start per tile.
+long long td_piece_keys_status_words(int B, int N) {
+  return 2LL * B * ((N + kKeyTile - 1) / kKeyTile);
+}
 
-// flags: (B, N) uint8 (packed = 0) or (B, N/32) uint32 plane-major words
-// (packed = 1); data (B, N) uint8; nbytes (B,) int32; counts scratch
-// (B, td_compact_tiles(N)) int32; outputs (B, p_cap) int32 x 6 and (B,).
+// flags: (B, N) uint8 (packed = 0; N % 32 == 0) or (B, N/32) uint32
+// plane-major words (packed = 1; N % 1024 == 0); data (B, N) uint8; nbytes
+// (B,) int32; out (6, B, p_cap) int32: start_b, piece_len, k0..k3;
+// n_pieces (B,) int32. status: at least td_piece_keys_status_words(B, N)
+// words that only this kernel writes (the statuses first, then the first
+// starts), zeroed before their first use; epoch as for td_compact_by_mask.
+// One launch.
 int td_compact_piece_keys(const void* flags, int packed, const void* data,
                           const void* nbytes, int B, int N, int p_cap,
-                          void* counts, void* start_b, void* piece_len,
-                          void* k0, void* k1, void* k2, void* k3,
-                          void* n_pieces, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int T = td_compact_tiles(N);
-  const int32_t* nb = (const int32_t*)nbytes;
-  starts_count_kernel<<<dim3(T, B), kThreads, 0, s>>>(
-      flags, packed, nb, N, T, (int32_t*)counts);
-  starts_scatter_kernel<<<dim3(T, B), kThreads, 0, s>>>(
-      flags, packed, nb, N, T, (const int32_t*)counts, p_cap,
-      (int32_t*)start_b, (int32_t*)n_pieces);
-  piece_keys_kernel<<<dim3((p_cap + kThreads - 1) / kThreads, B), kThreads,
-                      0, s>>>(
-      (const uint8_t*)data, nb, N, p_cap, (const int32_t*)n_pieces,
-      (int32_t*)start_b, (int32_t*)piece_len, (int32_t*)k0, (int32_t*)k1,
-      (int32_t*)k2, (int32_t*)k3);
+                          void* out, void* n_pieces, void* status,
+                          unsigned epoch, void* stream) {
+  const long long T = (N + kKeyTile - 1) / kKeyTile;
+  const long long F = ((long long)p_cap + kFillSlots - 1) / kFillSlots;
+  const long long blocks = (long long)B * (T + F);
+  if (B < 1 || N < 32 || N % 32 || (packed && N % 1024) || p_cap < 1 ||
+      blocks > INT_MAX || epoch == 0u || epoch >= (1u << 30))
+    return (int)cudaErrorInvalidValue;
+  unsigned long long* st = (unsigned long long*)status;
+  auto kernel = packed ? piece_keys_kernel<true> : piece_keys_kernel<false>;
+  kernel<<<(unsigned)blocks, kKeyThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)flags, (const uint8_t*)data, (const int32_t*)nbytes,
+      B, N, (int)T, (int)F, p_cap, (int32_t*)out, (long long)B * p_cap,
+      (int32_t*)n_pieces, st, st + B * T, epoch);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -49,40 +51,10 @@ constexpr int kVec = 16;                      // mask bytes per thread
 constexpr int kTile = kThreads * kVec;        // elements per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxArrays = 8;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr uint32_t kAgg = 1u, kIncl = 2u;     // tile status flags
 
 struct Ins {
   const int32_t* p[kMaxArrays];
 };
-
-// Bit i set where byte i of x is nonzero (i < 4).
-__device__ __forceinline__ uint32_t nonzero4(uint32_t x) {
-  x |= x >> 4;
-  x |= x >> 2;
-  x |= x >> 1;
-  return (((x & 0x01010101u) * 0x01020408u) >> 24) & 0xFu;
-}
-
-// A tile's status: tag (epoch << 2 | flag) above, its count below.
-__device__ __forceinline__ void put_status(unsigned long long* s,
-                                           uint32_t tag, int v) {
-  *(volatile unsigned long long*)s =
-      (unsigned long long)tag << 32 | (uint32_t)v;
-}
-
-// o[lo, hi) = v by the whole block, in 16-byte stores where aligned.
-__device__ void fill_range(int32_t* o, int lo, int hi, int32_t v) {
-  const int mis = (int)(((uintptr_t)(o + lo) >> 2) & 3u);
-  const int head = min(hi, lo + ((4 - mis) & 3));
-  for (int i = lo + threadIdx.x; i < head; i += blockDim.x) o[i] = v;
-  const int nq = (hi - head) >> 2;
-  int4* q = (int4*)(o + head);
-  const int4 vv = make_int4(v, v, v, v);
-  for (int i = threadIdx.x; i < nq; i += blockDim.x) q[i] = vv;
-  for (int i = head + 4 * nq + threadIdx.x; i < hi; i += blockDim.x)
-    o[i] = v;
-}
 
 // Whether lane l's element 32j + l of its warp's 512 is kept; `bits` holds
 // each thread's 16 keep bits (thread q: elements 16q .. 16q + 15).
@@ -184,32 +156,8 @@ record_kernel(const uint8_t* mask, int N, int T, Ins in, int k, int cap,
     }
     const int total = __shfl_sync(kFull, ws, kWarps - 1);
     if (lane < kWarps) s_warp[lane] = ws - wv;
-    const uint32_t tag_agg = epoch << 2 | kAgg, tag_incl = epoch << 2 | kIncl;
-    unsigned long long* st = status + (size_t)b * T;
-    int excl = 0;
-    if (t > 0) {
-      if (lane == 0) put_status(st + t, tag_agg, total);
-      for (int pred = t - 1;; pred -= 32) {
-        const int i = pred - lane;
-        unsigned long long s = 0ull;
-        uint32_t tag = tag_incl;
-        if (i >= 0) {
-          do {
-            s = *(volatile unsigned long long*)(st + i);
-            tag = (uint32_t)(s >> 32);
-          } while (tag != tag_agg && tag != tag_incl);
-        }
-        const uint32_t incl = __ballot_sync(kFull, tag == tag_incl);
-        const int first = incl ? __ffs(incl) - 1 : 31;
-        int v = lane <= first && i >= 0 ? (int)(uint32_t)s : 0;
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-        excl += v;
-        if (incl) break;
-      }
-    }
+    const int excl = look_back(status + (size_t)b * T, t, total, epoch);
     if (lane == 0) {
-      put_status(st + t, tag_incl, excl + total);
       if (t == T - 1) totals[b] = excl + total;
       s_base = excl;
       s_total = excl + total;

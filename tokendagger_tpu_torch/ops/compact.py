@@ -131,9 +131,10 @@ def _library():
 
     lib = cuda_library("compact")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.td_compact_tiles.argtypes = [i]
-    lib.td_compact_tiles.restype = i
-    lib.td_compact_piece_keys.argtypes = [vp, i, vp, vp, i, i, i] + [vp] * 9
+    lib.td_piece_keys_status_words.argtypes = [i, i]
+    lib.td_piece_keys_status_words.restype = ctypes.c_longlong
+    lib.td_compact_piece_keys.argtypes = (
+        [vp, i, vp, vp, i, i, i, vp, vp, vp, ctypes.c_uint, vp])
     lib.td_compact_piece_keys.restype = i
     lib.td_compact_status_words.argtypes = [i, i]
     lib.td_compact_status_words.restype = ctypes.c_longlong
@@ -177,22 +178,21 @@ def _launch_k2k3(starts, data, nbytes, p_cap: int, packed: bool):
     lib = _library()
     B, N = data.shape
     dev = data.device
-    counts = torch.empty((B, lib.td_compact_tiles(N)), dtype=torch.int32,
-                         device=dev)
-    outs = [torch.empty((B, p_cap), dtype=torch.int32, device=dev)
-            for _ in range(6)]
+    out = torch.empty((6, B, p_cap), dtype=torch.int32, device=dev)
     n_pieces = torch.empty((B,), dtype=torch.int32, device=dev)
     with _on(dev) as stream:
+        status, epoch = _status(("K2+K3", dev, stream),
+                                lib.td_piece_keys_status_words(B, N))
         rc = lib.td_compact_piece_keys(
             starts.data_ptr(), int(packed), data.data_ptr(),
-            nbytes.data_ptr(), B, N, p_cap, counts.data_ptr(),
-            *[o.data_ptr() for o in outs], n_pieces.data_ptr(), stream)
+            nbytes.data_ptr(), B, N, p_cap, out.data_ptr(),
+            n_pieces.data_ptr(), status.data_ptr(), epoch, stream)
     _check(rc, "compact_piece_keys")
     compact_piece_keys.launches += 1
-    return (*outs, n_pieces)
+    return (*out.unbind(0), n_pieces)
 
 
-# The tile status words of the look-back kernels (K4, K5+K6), per
+# The tile status words of the look-back kernels (K2+K3, K4, K5+K6), per
 # (kernel, device, stream): [int64 tensor, epoch of the last launch]. Each
 # buffer is written by one kernel only, and each launch tags its statuses
 # with a new epoch, so they are zeroed once, when allocated, and never

@@ -6,8 +6,9 @@ build device-only at the resident path's three K5+K6 shapes.
 
 Each variant is a copy of the source with one text replacement, built by
 nvcc for sm_90a (its register and spill lines are printed) and timed, in
-a process of its own, as chip_smoke.py times a kernel: CUDA events around 20 launches enqueued
-behind a sleep kernel, median of 5 runs. Variants that switch a part off
+a process of its own (tools/variants.py), as chip_smoke.py times a
+kernel: CUDA events around 20 launches enqueued behind a sleep kernel,
+median of 5 runs. Variants that switch a part off
 compute wrong outputs; they only say what that part costs. Shapes (rows,
 elements -> cap, arrays, share of the mask set: the auto run of
 chip_smoke.py at seed 0): decode (8, 1,048,576) -> 917,504, k 1, 0.854;
@@ -18,10 +19,7 @@ classes (8, 917,504) -> 102,144, k 1, 0.111; probe (8, 262,144) ->
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
-import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
@@ -41,28 +39,6 @@ VARIANTS = {
                         "__launch_bounds__(kThreads)"),
     "512 threads": ("kThreads = 256;", "kThreads = 512;"),
 }
-
-
-def build(src: str, name: str, out: Path) -> Path:
-    from tokendagger_tpu_torch._build import CSRC, NVCC_FLAGS, _nvcc
-
-    text = src
-    if VARIANTS[name] is not None:
-        old, new = VARIANTS[name]
-        if old not in src:
-            raise RuntimeError(f"{name}: {old!r} is not in route.cu")
-        text = src.replace(old, new)
-    cu = out.with_suffix(".cu")
-    cu.write_text(text)
-    log = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
-                          str(out), str(cu)], capture_output=True, text=True)
-    if log.returncode:
-        raise RuntimeError(log.stdout + log.stderr)
-    regs = [ln.split(":", 1)[-1].strip()
-            for ln in (log.stdout + log.stderr).splitlines()
-            if "registers" in ln]
-    print(f"build {name}: {'; '.join(regs)}", flush=True)
-    return out
 
 
 def load(path: Path) -> ctypes.CDLL:
@@ -115,30 +91,12 @@ def main() -> int:
     if len(sys.argv) == 3:
         time_variant(sys.argv[1], Path(sys.argv[2]))
         return 0
-    from tokendagger_tpu_torch._build import CSRC
+    from tools.variants import run
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"card: {smi}")
-    print("ms device-only at " + "; ".join(
+    print("shapes: " + "; ".join(
         f"{label} ({B}, {N}) -> {cap}, k {k}" for label, B, N, cap, k, _
         in SHAPES), flush=True)
-    src = (CSRC / "route.cu").read_text()
-    with tempfile.TemporaryDirectory() as d:
-        with ThreadPoolExecutor(len(VARIANTS)) as ex:  # one nvcc each
-            paths = list(ex.map(
-                lambda n: build(src, n, Path(d) / f"libk5_{len(n)}_"
-                                f"{abs(hash(n))}.so"), VARIANTS))
-        failed = 0
-        for name, path in zip(VARIANTS, paths):
-            rc = subprocess.run([sys.executable, __file__, name, str(path)],
-                                capture_output=True, text=True)
-            print(rc.stdout.strip() if rc.returncode == 0 else
-                  f"{name}: failed: {rc.stderr.strip().splitlines()[-1]}",
-                  flush=True)
-            failed += rc.returncode != 0
-    return 1 if failed else 0
+    return run(__file__, "route.cu", VARIANTS, "record_kernel")
 
 
 if __name__ == "__main__":
