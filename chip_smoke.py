@@ -73,7 +73,33 @@
    with an edge row each. Every kernel's times at the path's shapes join
    its row of the kernels line (``ms_by_shape`` and kin, K2+K3's
    ``library_ms_by_shape`` and ``launches_per_call_by_shape`` too).
-7. Prints a "kernels" JSON line, then the card's name and power limit, and
+7. Holds the kernels of the batched grids of short segments
+   (``ops/batched.resolve_grid``) against their plain versions at the
+   grid shapes (4096, 256), (1024, 1024) and (256, 4096), stage by stage,
+   on seeded multi-script rows with an empty row, a row of exactly W
+   chars, one piece and all whitespace: K9, K4 in the decode, K1's row
+   entry (all four profiles; it gets its own row of the kernels line),
+   K2+K3 on byte flags with p_cap = W, and K4 in finalize_host; times
+   each at each shape.
+8. Drives the public API's other paths, each with the counts set to 0
+   just before it and read just after (every kernel of the path must
+   have launched), with the engine phase's stand-in vocabulary:
+   * "batch": Tokenizer(backend="device").encode_batch over 10,008 texts
+     (10,000 seeded multi-script texts of log-uniform 16-4,096 B, every
+     8th with a special, and 8 of 256 KB). Every text's ids must equal
+     the host engine's. Prints the grids by width, the segments by route,
+     the wall rate, kernel launches per segment and the device's idle
+     share; then the first 1,000 texts through the grids and segment by
+     segment through encode_stream, in turns, whose launches per segment
+     the grids must undercut;
+   * "corpus": CorpusProcessor with 4 threads over 32 seeded files of
+     64-512 KB; every shard must equal the host engine's ids and a second
+     process must skip every file; prints the wall rate, and beside it
+     the rates of 1 thread and of 4 threads again, into fresh outputs;
+   * "streaming": StreamingEncoder fed 4 MB of multi-script text with
+     specials in seeded chunks of 1 B-64 KB; the ids must equal one
+     encode and the host engine's; prints the wall rate.
+9. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
 
@@ -802,6 +828,7 @@ def engine_counters():
 
     return dict(utf8_decode_block=PT.utf8_decode_block,
                 piece_starts_cp=BP.piece_starts_chars,
+                piece_starts_rows=BP.piece_starts_rows,
                 compact_piece_keys=CP.compact_piece_keys,
                 compact_by_mask=CP.compact_by_mask)
 
@@ -857,7 +884,10 @@ def run_engine(seed: int, mb: int, dev, *,
     print("engine launches: " + ", ".join(
         f"{n} {v} ({v / max(st.windows, 1):.2f}/window)"
         for n, v in launches.items()))
-    if dev != "cpu" and any(v == 0 for v in launches.values()):
+    # K1's row entry runs only for a window of at most 4 KB (a short
+    # segment's last), which this text need not have
+    if dev != "cpu" and any(v == 0 for n, v in launches.items()
+                            if n != "piece_starts_rows"):
         raise AssertionError(f"a kernel of the engine path never ran: "
                              f"{launches}")
     if dev != "cpu" and st.cut_windows < 2:
@@ -1419,6 +1449,408 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
     return errs, times
 
 
+GRID_SHAPES = ((4096, 256), (1024, 1024), (256, 4096))
+
+
+def grid_rows_bytes(seed: int, B: int, W: int) -> list[bytes]:
+    """B rows of a (B, W) grid: an empty row, a row of exactly W chars
+    (ASCII prose), one piece (W letters), all whitespace, then seeded
+    multi-script rows of 1..W bytes cut at char boundaries."""
+    rng = np.random.default_rng(seed)
+    text = multiscript(B * W, seed).encode()
+    rows = [b"", corpus(W, seed).encode()[:W], b"a" * W,
+            b" \t\n " * (W // 4)]
+    pos = 0
+    for k in rng.integers(1, W + 1, B - len(rows)).tolist():
+        if pos + k > len(text):
+            pos = 0
+        rows.append(text[pos:pos + k].decode("utf-8", "ignore").encode())
+        pos += k
+    return rows
+
+
+def stage_rows(rows: list[bytes], W: int, dev):
+    by = np.zeros((len(rows), W), np.uint8)
+    nb = np.zeros(len(rows), np.int32)
+    for r, raw in enumerate(rows):
+        by[r, : len(raw)] = np.frombuffer(raw, np.uint8)
+        nb[r] = len(raw)
+    return torch.from_numpy(by).to(dev), torch.from_numpy(nb).to(dev)
+
+
+def check_grid_kernels(seed: int, dev) -> tuple[dict, dict, dict]:
+    """Every kernel of the batched grids against its plain version at the
+    three grid shapes, stage by stage as ``ops/batched.resolve_grid``
+    runs them, on seeded multi-script rows with edge rows (empty, exactly
+    W chars, one piece, all whitespace): K9, K4 in the decode, K1's row
+    entry (all four profiles), K2+K3 on byte flags with p_cap = W, and K4
+    in finalize_host. Returns K1's row-entry row of the kernels line, and
+    each kernel's largest error and timings by shape."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+    from tokendagger_tpu_torch.ops.fused import finalize_host
+
+    names = ("utf8_decode_block", "piece_starts_rows", "compact_piece_keys",
+             "compact_by_mask")
+    errs = dict.fromkeys(names, 0)
+    times: dict = {n: {} for n in names}
+    passes = {}
+    for B, W in GRID_SHAPES:
+        by, nb = stage_rows(grid_rows_bytes(seed + W, B, W), W, dev)
+        at = f"grid ({B}, {W})"
+        e = {}
+        cp_at, lead = PT.utf8_decode_block(by)
+        e["utf8_decode_block"] = max_abs_err(
+            (cp_at, lead), PT.utf8_decode_block_plain(by))
+        times["utf8_decode_block"][at] = timings(
+            lambda: PT.utf8_decode_block(by),
+            lambda: PT.utf8_decode_block_plain(by), 9 * B * W, 20 * B * W)
+        idx = torch.arange(W, dtype=torch.int32, device=dev)
+        is_lead = (lead != 0) & (idx < nb[:, None])
+        arrs = [cp_at, idx.expand(B, W).contiguous()]
+        k4 = [max_abs_err(CP.compact_by_mask(arrs, is_lead, fill=0),
+                          CP.compact_by_mask_plain(arrs, is_lead, fill=0))]
+        kept = int(is_lead.sum())
+        times["compact_by_mask"][f"{at} decode k 2"] = timings(
+            lambda: CP.compact_by_mask(arrs, is_lead, fill=0),
+            lambda: CP.compact_by_mask_plain(arrs, is_lead, fill=0),
+            B * W + 8 * kept + 8 * B * W, B * W)
+        cp, cob, _, m = PT.utf8_decode(by, nb)
+        e1 = 0
+        for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+            n0 = BP.piece_starts_rows.launches
+            got = BP.piece_starts_chars(cp, m, profile=prof, packed_out=True)
+            if BP.piece_starts_rows.launches != n0 + 1:
+                raise AssertionError(f"piece_starts_chars at {(B, W)} did "
+                                     "not take K1's row entry")
+            err = max_abs_err(
+                [got], [BP.piece_starts_chars_plain(cp, m, profile=prof)])
+            print(f"K1 piece_starts_rows[{prof}] {at}: max_abs_err {err}")
+            e1 = max(e1, err)
+        e["piece_starts_rows"] = e1
+        passes[at] = BP.starts_passes("llama4", W)
+        times["piece_starts_rows"][at] = timings(
+            lambda: BP.piece_starts_rows(cp, m),
+            lambda: BP.piece_starts_chars_plain(cp, m),
+            4 * B * W + B * W / 8 + 4 * B, passes[at] * B * W / 32,
+            plain_reps=3)
+        if W % 1024 == 0:
+            # the window entry on the same rows, for comparison: the
+            # cooperative launch spreads B rows over the card's blocks
+            # (in groups past its co-resident blocks), a grid barrier
+            # per pass
+            coop = device_ms(lambda: BP._launch_k1_cp(cp, m, "llama4"))
+            spw = BP.starts_blocks_per_window("codepoints", B, W)
+            print(f"K1 window entry on the rows of {at}: {coop:.4f} ms on "
+                  f"the device, {spw} blocks per row (row entry "
+                  f"{times['piece_starts_rows'][at]['ms']:.4f} ms)")
+        st = BP.unpack_mask(BP.piece_starts_rows(cp, m))
+        stb = PT.starts_to_bytes(st, cob, by, nb)
+        keys = CP.compact_piece_keys(stb, by, nb, W)
+        e["compact_piece_keys"] = max_abs_err(
+            keys, CP.compact_piece_keys_plain(stb, by, nb, W))
+        npc = int(keys[6].sum())
+        k23_at = f"{at} byte flags p_cap {W}"
+        times["compact_piece_keys"][k23_at] = time_k23(stb, by, nb, W, False)
+        # finalize_host's two K4 calls, with every piece longer than 6
+        # bytes missed
+        rank = torch.where(keys[1] > 6, -1, keys[2] & 0xFFFF)
+        fin = (keys[0], keys[1], rank, keys[6], nb)
+        with recorded_inputs() as fin_k4:
+            got = finalize_host(*fin, p_cap=W)
+        want = finalize_host(*(a.cpu() for a in fin), p_cap=W)
+        k4.append(max_abs_err([g.cpu() for g in got], list(want)))
+        e["compact_by_mask"] = max(k4)
+        for key, (arrays, mm, fill) in fin_k4.items():
+            if key[0] != "compact_by_mask":
+                continue
+            k, kept, P = len(arrays), int(mm.sum()), mm.numel()
+            times["compact_by_mask"][
+                f"{at} finalize k {k} fill {fill}"] = timings(
+                lambda: CP.compact_by_mask(arrays, mm, fill=fill),
+                lambda: CP.compact_by_mask_plain(arrays, mm, fill=fill),
+                P + 4 * k * kept + 4 * k * P, P)
+        print(f"grid {(B, W)} ({int(nb.sum())} B, {npc} pieces): max_abs_err "
+              + ", ".join(f"{k} {v}" for k, v in e.items()))
+        if any(e.values()):
+            raise AssertionError(f"grid {(B, W)}: a kernel differs from its "
+                                 f"plain version: {e}")
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        for name in names:
+            for shape, t in times[name].items():
+                if shape.startswith(at):
+                    print(f"{name} [{shape}]: {show(t)}")
+    first = f"grid ({GRID_SHAPES[0][0]}, {GRID_SHAPES[0][1]})"
+    row_times = times.pop("piece_starts_rows")
+    row = dict(
+        name="piece_starts_rows", route="cuda",
+        source="tokendagger_tpu_torch/csrc/piece_starts.cu",
+        replaces="tokendagger_tpu/ops/bitplane.py:1152 (row entry)",
+        max_abs_err=errs.pop("piece_starts_rows"), **row_times[first],
+        library_ms=None, passes=passes[first], **by_shape(row_times))
+    return row, errs, times
+
+
+BATCH_KERNELS = ("utf8_decode_block", "piece_starts_rows", "piece_starts_cp",
+                 "compact_piece_keys", "compact_by_mask")
+
+
+def count_runs(counters: dict, fn):
+    """Runs ``fn`` with every kernel count set to 0 just before it;
+    returns its result, its wall (s) and the counts just after it."""
+    for k in counters.values():
+        k.launches = 0
+    t = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t
+    return out, wall, {n: k.launches for n, k in counters.items()}
+
+
+def batch_texts(seed: int, n: int = 10_000) -> list[str]:
+    """n seeded multi-script texts of log-uniform 16-4,096 B, cut at char
+    boundaries, every 8th with one of SPECIALS inside; then 8 texts of
+    256 KB."""
+    rng = np.random.default_rng(seed)
+    lens = np.exp(rng.uniform(np.log(16), np.log(4096), n)).astype(int)
+    src = multiscript(int(lens.sum()) + (1 << 20), seed).encode()
+    texts, pos = [], 0
+    for i, k in enumerate(lens.tolist()):
+        t = src[pos:pos + k].decode("utf-8", "ignore")
+        pos += k
+        if i % 8 == 0:
+            j = int(rng.integers(0, len(t) + 1))
+            t = t[:j] + SPECIALS[int(rng.integers(len(SPECIALS)))] + t[j:]
+        texts.append(t)
+    big = multiscript(8 << 18, seed + 1).encode()
+    texts += [big[j << 18:(j + 1) << 18].decode("utf-8", "ignore")
+              for j in range(8)]
+    return texts
+
+
+def engine_tokenizer(seed: int, dev, n_ranks=200_000):
+    """The engine phase's tokenizer (its stand-in vocabulary and
+    SPECIALS) on ``dev``, and a host engine over the same."""
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine, Tokenizer
+
+    ranks = standin_vocab(n_ranks, seed, extra=multiscript(1 << 20,
+                                                          seed + 4))
+    specials = {s: n_ranks + i for i, s in enumerate(SPECIALS)}
+    tok = Tokenizer("standin", pat_str=LLAMA4_PATTERN, mergeable_ranks=ranks,
+                    special_tokens=specials, backend="device", device=dev)
+    return tok, HostEngine(LLAMA4_PATTERN, ranks, specials), specials
+
+
+def run_batch(seed: int, dev) -> dict:
+    """Tokenizer(backend="device").encode_batch over 10,008 texts (see
+    ``batch_texts``): the short spans go through grids, the 256 KB texts
+    through windows. Every text's ids must equal the host engine's.
+    Prints the grids by width, the segments by route, the wall rate,
+    launches per segment and the device's idle share; then the same
+    first 1,000 texts through grids and segment by segment through
+    ``encode_stream`` (wall rate and launches per segment). Returns the
+    kernels' launches."""
+    from tokendagger_tpu_torch import EngineStats
+
+    t = time.perf_counter()
+    tok, host, specials = engine_tokenizer(seed, dev)
+    texts = batch_texts(seed + 30)
+    nbytes = sum(len(x.encode()) for x in texts)
+    eng = tok._get_device()
+    allowed = set(specials)
+    segs = [len(s.encode()) for x in texts
+            for s, sid in eng._split_specials(x, allowed) if sid is None and s]
+    n_seg = len(segs)
+    n_long = sum(n > 4096 for n in segs)
+    tok.encode_batch(texts[:2000], allowed_special="all")  # warm-up
+    print(f"batch: {len(texts)} texts, {nbytes} B, {n_seg} non-empty "
+          f"segments, set-up {time.perf_counter() - t:.1f} s")
+    counters = engine_counters()
+    eng.stats = EngineStats()
+    ids, wall, launches = count_runs(
+        counters, lambda: tok.encode_batch(texts, allowed_special="all"))
+    st = eng.stats
+    n_launch = sum(launches.values())
+    print(f"batch encode_batch: {nbytes} B in {wall:.4f} s = "
+          f"{nbytes / 1e6 / wall:.2f} MB/s wall; grids by width "
+          f"{json.dumps(st.grids_by_width)} ({st.grids} grids); segments "
+          f"by route: grid {st.grid_rows}, stream {n_seg - st.grid_rows} "
+          f"({st.windows} windows); {n_launch} launches = "
+          f"{n_launch / n_seg:.4f} per segment {json.dumps(launches)}; "
+          f"grid time {st.grid_s:.4f} s, spliced {st.spliced_pieces}")
+    dead = [n for n in BATCH_KERNELS if not launches[n]]
+    if dev != "cpu" and dead:
+        raise AssertionError(f"batch: kernels never launched: {dead}")
+    if st.grid_rows != n_seg - n_long or not st.grids:
+        raise AssertionError(f"batch: {st.grid_rows} segments took grids, "
+                             f"not {n_seg - n_long}")
+    t = time.perf_counter()
+    for i, x in enumerate(texts):
+        want = host.encode(x, allowed)[0]
+        if ids[i] != want:
+            raise AssertionError(f"batch text {i} differs from the host "
+                                 f"engine at id {first_diff(ids[i], want)}")
+    print(f"batch ids equal the host engine ({sum(map(len, ids))} ids, "
+          f"host {time.perf_counter() - t:.1f} s)")
+    if dev != "cpu":
+        idle_share(lambda: tok.encode_batch(texts, allowed_special="all"),
+                   f"batch encode_batch of {nbytes} B")
+    # the grid route against one encode_stream per segment, on the same
+    # first 1,000 texts (for the rate only)
+    head = texts[:1000]
+    hb = sum(len(x.encode()) for x in head)
+    hsegs = [s.encode() for x in head
+             for s, sid in eng._split_specials(x, allowed) if sid is None and s]
+    rates = {}
+    for route in ("grid", "segment", "segment", "grid"):
+        if route == "grid":
+            fn = functools.partial(tok.encode_batch, head,
+                                   allowed_special="all")
+        else:
+            def fn():
+                out = []
+                for x in head:
+                    for s, sid in eng._split_specials(x, allowed):
+                        if sid is not None:
+                            out.append(sid)
+                        elif s:
+                            out.extend(eng.encode_stream(s.encode()).tolist())
+                return out
+        _, w, n = count_runs(counters, fn)
+        rates.setdefault(route, []).append(
+            (hb / 1e6 / w, sum(n.values()) / len(hsegs)))
+    print(f"batch first 1,000 texts ({hb} B, {len(hsegs)} segments), two "
+          "runs each: " + "; ".join(
+              f"{r}: " + " / ".join(f"{mb:.2f} MB/s wall, {lp:.3f} launches "
+                                    "per segment" for mb, lp in v)
+              for r, v in rates.items()))
+    if dev != "cpu" and rates["grid"][0][1] >= rates["segment"][0][1]:
+        raise AssertionError("batch: the grids did not launch fewer kernels "
+                             "per segment than the per-segment route")
+    return launches
+
+
+CORPUS_KERNELS = ("utf8_decode_block", "piece_starts_cp",
+                  "compact_piece_keys", "compact_by_mask")
+
+
+def run_corpus(seed: int, dev, n_files: int = 32) -> dict:
+    """CorpusProcessor(Tokenizer(backend="device"), num_threads=4) over
+    n_files seeded multi-script files of 64-512 KB: every shard must equal
+    the host engine's ids, and a second process must skip every file.
+    Then 1 thread and 4 threads again, each into a fresh output, for the
+    rates the pool gains (their shards must equal the first's). Returns
+    the kernels' launches of the first run."""
+    import tempfile
+    from pathlib import Path
+
+    from tokendagger_tpu_torch.corpus import CorpusProcessor
+
+    tok, host, _ = engine_tokenizer(seed, dev)
+    tok._get_device()  # set-up: the engine's tables, outside the wall
+    rng = np.random.default_rng(seed + 40)
+    sizes = rng.integers(64 << 10, (512 << 10) + 1, n_files).tolist()
+    src = multiscript(sum(sizes), seed + 41).encode()
+    with tempfile.TemporaryDirectory() as d:
+        files, pos = [], 0
+        for i, k in enumerate(sizes):
+            p = Path(d) / "in" / f"doc{i:02d}.txt"
+            p.parent.mkdir(exist_ok=True)
+            p.write_bytes(src[pos:pos + k].decode("utf-8", "ignore").encode())
+            pos += k
+            files.append(p)
+        nbytes = sum(p.stat().st_size for p in files)
+        proc = CorpusProcessor(tok, Path(d) / "out", num_threads=4)
+        manifest, wall, launches = count_runs(
+            engine_counters(), lambda: proc.process(files))
+        print(f"corpus: {len(files)} files, {nbytes} B in {wall:.4f} s = "
+              f"{nbytes / 1e6 / wall:.2f} MB/s wall (4 threads); launches "
+              f"{json.dumps(launches)}")
+        dead = [n for n in CORPUS_KERNELS if not launches[n]]
+        if dev != "cpu" and dead:
+            raise AssertionError(f"corpus: kernels never launched: {dead}")
+        t = time.perf_counter()
+        for p in files:
+            e = manifest["files"][str(p.resolve())]
+            want = host.encode_ordinary(p.read_text(encoding="utf-8"))
+            got = np.load(e["shard"]).tolist()
+            if e["status"] != "done" or got != want:
+                raise AssertionError(f"corpus shard of {p.name} differs "
+                                     "from the host engine")
+        again = CorpusProcessor(tok, Path(d) / "out", num_threads=4)
+        again.process(files)
+        if again.meter.bytes:
+            raise AssertionError("corpus: a second process re-encoded files")
+        print(f"corpus shards equal the host engine (host "
+              f"{time.perf_counter() - t:.1f} s); a second process skipped "
+              "every file")
+        rates = {}
+        for i, threads in enumerate((1, 4)):
+            out = Path(d) / f"out_t{threads}_{i}"
+            t = time.perf_counter()
+            m = CorpusProcessor(tok, out, num_threads=threads).process(files)
+            rates[threads] = nbytes / 1e6 / (time.perf_counter() - t)
+            for p in files:
+                key = str(p.resolve())
+                if not np.array_equal(np.load(m["files"][key]["shard"]),
+                                      np.load(manifest["files"][key]["shard"])):
+                    raise AssertionError(f"corpus with {threads} threads: "
+                                         f"the shard of {p.name} differs")
+        print(f"corpus threads: 1 thread {rates[1]:.2f} MB/s wall, 4 threads "
+              f"again {rates[4]:.2f} MB/s wall (fresh outputs, shards equal)")
+    return launches
+
+
+STREAMING_KERNELS = ("utf8_decode_block", "compact_piece_keys",
+                     "compact_by_mask")
+
+
+def run_streaming(seed: int, dev) -> dict:
+    """StreamingEncoder over Tokenizer(backend="device") fed 4 MB of
+    multi-script text with specials in seeded chunks of 1 B-64 KB
+    (log-uniform); the result must equal one encode and the host
+    engine's ids. Returns the kernels' launches."""
+    from tokendagger_tpu_torch import StreamingEncoder
+
+    tok, host, specials = engine_tokenizer(seed, dev)
+    tok._get_device()  # set-up: the engine's tables, outside the wall
+    text = with_specials(multiscript(4 << 20, seed + 50), seed + 51,
+                         every=1 << 14)
+    nbytes = len(text.encode())
+    rng = np.random.default_rng(seed + 52)
+    chunks, i = [], 0
+    while i < len(text):
+        k = int(np.exp(rng.uniform(0, np.log(1 << 16))))
+        chunks.append(text[i:i + k])
+        i += k
+
+    def stream():
+        enc = StreamingEncoder(tok, allowed_special="all")
+        out = []
+        for c in chunks:
+            out.extend(enc.feed(c))
+        return out + enc.flush()
+
+    counters = engine_counters()
+    ids, wall, launches = count_runs(counters, stream)
+    print(f"streaming: {nbytes} B in {len(chunks)} chunks, {wall:.4f} s = "
+          f"{nbytes / 1e6 / wall:.2f} MB/s wall; launches "
+          f"{json.dumps(launches)}")
+    dead = [n for n in STREAMING_KERNELS if not launches[n]]
+    if launches["piece_starts_rows"] + launches["piece_starts_cp"] == 0:
+        dead.append("piece_starts (either entry)")
+    if dev != "cpu" and dead:
+        raise AssertionError(f"streaming: kernels never launched: {dead}")
+    want = tok.encode(text, allowed_special="all")
+    if ids != want or want != host.encode(text, set(specials))[0]:
+        raise AssertionError(f"streaming ids differ from one encode at id "
+                             f"{first_diff(ids, want)}")
+    print(f"streaming ids equal one encode and the host engine "
+          f"({len(ids)} ids)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1461,17 +1893,23 @@ def main() -> int:
     stream = run_stream(args.seed, args.mb, "cuda")
     engine, engine_errs, engine_times = run_engine(args.seed,
                                                    args.engine_mb, "cuda")
+    row_entry, grid_errs, grid_times = check_grid_kernels(args.seed, "cuda")
+    rows.append(row_entry)
+    paths = dict(stream=stream, engine=engine, resident=resident,
+                 batch=run_batch(args.seed, "cuda"),
+                 corpus=run_corpus(args.seed, "cuda"),
+                 streaming=run_streaming(args.seed, "cuda"))
     for r in rows:
         name = r["name"]
-        by_path = dict(stream=stream.get(name, 0),
-                       engine=engine.get(name, 0),
-                       resident=resident.get(name, 0))
+        by_path = {p: v.get(name, 0) for p, v in paths.items()}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         r["max_abs_err"] = max(r["max_abs_err"], engine_errs.get(name, 0),
-                               resident_errs.get(name, 0))
+                               resident_errs.get(name, 0),
+                               grid_errs.get(name, 0))
         more = {**resident_times.get(name, {}),
                 **engine_times.get(name, {}),
+                **grid_times.get(name, {}),
                 **(k1_group_times if name == "piece_starts" else {})}
         for k, v in by_shape(more).items():
             r.setdefault(k, {}).update(v)

@@ -237,6 +237,68 @@ def test_kernel_derivation_host_build_codepoints_equals_plain(profile):
     assert np.array_equal(want.numpy(), got)
 
 
+def _row_windows(seed: int, n: int):
+    """(7, n) int32 codepoint rows as the batched grids give K1's row
+    entry: ragged multi-script text, an empty row, a row of exactly n
+    chars, one piece, all whitespace, codepoints outside [0, 0x10FFFF],
+    dense ASCII classes; garbage codepoints beyond each length."""
+    rng = np.random.default_rng(seed)
+    texts = [multiscript_text(rng, n - 7), "", ascii_text(rng, n), "a" * n,
+             " \t\n  \r\n \u3000" * n, multiscript_text(rng, n),
+             "it's  WON'T I'll 123,456 a//b \r\n\t  Zz0 " * n]
+    cp = rng.integers(0, 0x110000, (len(texts), n)).astype(np.int32)
+    m = np.zeros(len(texts), np.int32)
+    for b, t in enumerate(texts):
+        c = np.array([ord(ch) for ch in t[:n]], np.int32)
+        cp[b, : len(c)] = c
+        m[b] = len(c)
+    cp[5, 3], cp[5, 9] = 0x7FFFFFFF, -5
+    return cp, m
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+@pytest.mark.parametrize("profile", PROFILES)
+def test_kernel_derivation_host_build_rows_equals_plain(two_level, profile,
+                                                        n):
+    """At the grid widths K1's row entry takes (one block per row, and a
+    transpose for any number of words per plane, 8 at n = 256): the
+    derivation built for the host, one segment per row, equals the plain
+    version, and both equal the JAX char-level starts of every row."""
+    cp, m = _row_windows(n + len(profile), n)
+    got, passes = _host_kernel_cp(cp, m, profile)
+    assert passes > 0, "kernel scratch planes exhausted"
+    rows = TB.piece_starts_rows(torch.from_numpy(cp), torch.from_numpy(m),
+                                profile=profile)
+    assert np.array_equal(rows.numpy(), got)
+    want = TB.piece_starts_chars(torch.from_numpy(cp), torch.from_numpy(m),
+                                 profile=profile, packed_out=True)
+    assert np.array_equal(want.numpy(), got)
+    flags = TB.unpack_mask(torch.from_numpy(got)).numpy()
+    for b in range(cp.shape[0]):
+        ref = np.asarray(JB.piece_starts_bits(
+            jnp.asarray(cp[b]), jnp.int32(m[b]), *two_level,
+            profile=profile, ascii_fast=False))
+        assert np.array_equal(ref, flags[b]), (profile, n, b)
+
+
+def test_piece_starts_rows_checks_inputs():
+    m = torch.tensor([3], dtype=torch.int32)
+    for n in (16, 4096 + 32, 250):
+        with pytest.raises(ValueError):
+            TB.piece_starts_rows(torch.zeros((1, n), dtype=torch.int32), m)
+    with pytest.raises(ValueError):
+        TB.piece_starts_rows(torch.zeros((1, 256), dtype=torch.int32),
+                             torch.tensor([1, 2], dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        TB.piece_starts_rows(torch.zeros((1, 256), dtype=torch.int32), m,
+                             profile="p50k")
+    # piece_starts_chars takes N % 32 up to 4096 chars, N % 1024 beyond
+    TB.piece_starts_chars(torch.zeros((1, 4064), dtype=torch.int32), 3)
+    with pytest.raises(ValueError):
+        TB.piece_starts_chars(torch.zeros((1, 4096 + 32), dtype=torch.int32),
+                              3)
+
+
 def test_piece_starts_chars_checks_inputs():
     cp = torch.zeros((1, 1024), dtype=torch.int32)
     with pytest.raises(ValueError):

@@ -467,3 +467,122 @@ def test_resident_card_equals_cpu(dev):
         per = 3 if cap == 0 else 1
         assert n[0] == n[1] == per * runs
         assert (n[3] if cap == 0 else n[2]) == runs
+
+
+# ---------------------------------------------------------------------------
+# Batched grids of short segments: K1's row entry, K2+K3 and K4 at the
+# grid shapes, and threads sharing one engine
+# ---------------------------------------------------------------------------
+
+
+def _grid(B, W, seed, dev):
+    """A (B, W) grid of multi-script rows as the engine stages them: every
+    fifth row empty, one exactly W bytes, one piece, all whitespace; rows
+    0-padded."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b in range(B):
+        kind = b % 6
+        if kind == 0:
+            raw = b""
+        elif kind == 1:
+            raw = prose_text(rng, W).encode()[:W]
+        elif kind == 2:
+            raw = b"a" * int(rng.integers(1, W + 1))
+        elif kind == 3:
+            raw = b" \t\n " * (W // 4)
+        else:
+            raw = multiscript_text(rng, int(rng.integers(1, W))).encode()[:W]
+            raw = raw.decode("utf-8", errors="ignore").encode()
+        rows.append(raw)
+    by = np.zeros((B, W), np.uint8)
+    nb = np.zeros(B, np.int32)
+    for b, raw in enumerate(rows):
+        by[b, : len(raw)] = np.frombuffer(raw, np.uint8)
+        nb[b] = len(raw)
+    return torch.from_numpy(by).to(dev), torch.from_numpy(nb).to(dev)
+
+
+GRID_SHAPES = [(4096, 256), (1024, 1024), (256, 4096), (7, 256), (3, 4064)]
+
+
+@pytest.mark.parametrize("B,W", GRID_SHAPES)
+def test_k1_rows_equals_plain(dev, B, W):
+    """K1's row entry (one block per row, planes in shared memory) equals
+    its plain version for all four profiles; piece_starts_chars takes it
+    for rows of at most 4096 chars."""
+    by, nb = _grid(B, W, B + W, dev)
+    cp, _, _, m = PT.utf8_decode(by, nb)
+    cp[min(5, B - 1), 3] = 0x7FFFFFFF
+    for profile in PROFILES:
+        before = BP.piece_starts_rows.launches
+        got = BP.piece_starts_chars(cp, m, profile=profile, packed_out=True)
+        assert BP.piece_starts_rows.launches == before + 1
+        want = BP.piece_starts_chars_plain(cp, m, profile=profile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), profile
+
+
+@pytest.mark.parametrize("B,W", GRID_SHAPES[:3])
+def test_grid_stages_equal_plain(dev, B, W):
+    """K2+K3 (byte flags, p_cap = W) and K4 (the decode's and finalize's
+    compactions) at the grid shapes equal their plain versions."""
+    from tokendagger_tpu_torch.ops.fused import finalize_host
+
+    by, nb = _grid(B, W, B * W, dev)
+    decoded = PT.utf8_decode(by, nb)
+    for g, w in zip(decoded, PT.utf8_decode(by.cpu(), nb.cpu())):
+        assert torch.equal(g.cpu(), w)
+    cp, cob, _, m = decoded
+    st = BP.piece_starts_chars(cp, m)
+    stb = PT.starts_to_bytes(st, cob, by, nb)
+    keys = CP.compact_piece_keys(stb, by, nb, W)
+    want = CP.compact_piece_keys_plain(stb, by, nb, W)
+    torch.cuda.synchronize()
+    for g, w in zip(keys, want):
+        assert torch.equal(g, w)
+    rank = torch.where(keys[1] % 3 == 0, -1, keys[2] & 0xFFFF)
+    got = finalize_host(keys[0], keys[1], rank, keys[6], nb, p_cap=W)
+    ref = finalize_host(*(t.cpu() for t in (keys[0], keys[1], rank,
+                                            keys[6], nb)), p_cap=W)
+    for g, w in zip(got, ref):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_threads_share_one_engine_on_the_card(dev):
+    """Four threads encode short texts (grids) and long ones (windows)
+    through one Tokenizer on the card; each gets the host engine's ids."""
+    import threading
+
+    from conftest import make_tiny_vocab
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine, Tokenizer
+
+    ranks, specials = make_tiny_vocab()
+    tok = Tokenizer("t", pat_str=LLAMA4_PATTERN, mergeable_ranks=ranks,
+                    special_tokens=specials, device="cuda")
+    host = HostEngine(LLAMA4_PATTERN, ranks, specials)
+    rng = np.random.default_rng(21)
+    jobs = [[multiscript_text(rng, int(k)) + "<|bos|>x"
+             for k in rng.integers(0, 3000, 40)] for _ in range(12)]
+    jobs += [[multiscript_text(rng, 300000)] for _ in range(2)]
+    got = [None] * len(jobs)
+    errors = []
+
+    def work(t):
+        try:
+            for i in range(t, len(jobs), 4):
+                got[i] = tok.encode_batch(jobs[i], allowed_special="all")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    for job, ids in zip(jobs, got):
+        assert ids == [host.encode(t, set(specials))[0] for t in job]
+    st = tok._get_device().stats
+    assert st.grids >= 12 and st.windows >= 2

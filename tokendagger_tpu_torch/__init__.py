@@ -2,26 +2,32 @@
 
 A tiktoken-compatible BPE tokenizer whose device path turns raw byte
 windows into exact token ids. This package holds the port of the public
-API (``Tokenizer``/``Encoding`` over ``DeviceEngine``, safe-cut windows
-over any UTF-8 text), of the ASCII corpus pipeline (``ResidentStream``)
-and of the window-batch harness ``run_resident`` with its general
-(multi-byte) pipeline: plain torch for the table probe, the decode and the
-glue, hand-written CUDA kernels for Hopper (``csrc/``) where the JAX
-package has Pallas kernels. Entry points run on the card unless the
+API (``Tokenizer``/``Encoding`` over ``DeviceEngine``: safe-cut windows
+over any UTF-8 text, and (rows, width) grids for many short texts; the
+named-encoding registry, ``StreamingEncoder``, ``load_tekken``, the
+corpus job runner ``corpus.CorpusProcessor`` and the command line
+``cli``), of the ASCII corpus pipeline (``ResidentStream``) and of the
+window-batch harness ``run_resident`` with its general (multi-byte)
+pipeline: plain torch for the table probe, the decode and the glue,
+hand-written CUDA kernels for Hopper (``csrc/``) where the JAX package
+has Pallas kernels. Entry points run on the card unless the
 caller passes ``device="cpu"`` (or ``backend="host"``); on CPU tensors
 every kernel's wrapper runs its plain torch version instead.
 """
 
 from .engine import DeviceEngine, EngineStats
 from .hostengine import HostEngine, byte_pair_encode, byte_pair_merge
+from .registry import get_encoding, list_encodings, register_encoding
 from .resident import ResidentResult, run_resident
 from .residentstream import ResidentStream, StreamStats
+from .streaming import StreamingEncoder
 from .vocab import (
     CL100K_PATTERN,
     GPT2_PATTERN,
     LLAMA4_PATTERN,
     classify_pattern,
     load_hf_special_tokens,
+    load_tekken,
     load_tiktoken_model,
 )
 from .wrapper import (
@@ -31,6 +37,8 @@ from .wrapper import (
     create_tokenizer,
     load_tokenizer,
 )
+
+__version__ = "0.1.0"
 
 __all__ = [
     "CL100K_PATTERN",
@@ -43,14 +51,20 @@ __all__ = [
     "ResidentResult",
     "ResidentStream",
     "StreamStats",
+    "StreamingEncoder",
     "TokenDaggerError",
     "Tokenizer",
+    "__version__",
     "byte_pair_encode",
     "byte_pair_merge",
     "classify_pattern",
     "create_tokenizer",
+    "get_encoding",
+    "list_encodings",
     "load_hf_special_tokens",
+    "load_tekken",
     "load_tiktoken_model",
     "load_tokenizer",
+    "register_encoding",
     "run_resident",
 ]

@@ -66,6 +66,23 @@
 // Output: word w' bit j = start flag of char j*C + w', the reference's
 // plane-major layout that compact.cu reads; each block transposes the
 // 32x32-bit groups it owns with ballots.
+//
+// Row entry (td_piece_starts_cp_rows): the batched grids of short
+// segments (ops/batched.py) give K1 thousands of rows of 256-4096 chars.
+// Spread over segments with grid barriers, a (4096, 256) grid would run
+// as 16 groups of 264 rows, each paying the ~165 barrier-separated
+// passes. Instead each row is one ordinary block (one thread per word of
+// a plane: 32 threads at 256 and 1024 chars, 128 at 4096) whose 48 planes
+// live in dynamic shared memory (1.5 KB at 256 chars, 24 KB at 4096),
+// with __syncthreads between passes (RowOps). A row of 256 chars has
+// C = 8 words a plane, too few for the 32x32 ballot transpose, so each
+// thread gathers its output word bit by bit (starts_derive.cuh
+// plane_major_word, which the host build also runs). Measured by
+// chip_smoke.py (H100 80GB HBM3, 700 W), device time: 0.162 ms at
+// (4096, 256), 0.064 ms at (1024, 1024) and 0.065 ms at (256, 4096),
+// where the window entry takes 2.000 and 0.509 ms on the same rows. What
+// bounds it is the ~165 passes, not bytes: at 256 chars most of a
+// block's threads idle in each pass.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +96,10 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kBlocksPerSm = 2;
 constexpr int kMaxBlocks = 4096;
+// row entry: rows of at most this many chars, one block of at most
+// kRowThreads threads each (one thread per word of a plane)
+constexpr int kRowMaxChars = 4096;
+constexpr int kRowThreads = kRowMaxChars / 32;
 
 // each block's segment map of the current scan (bit 0: z, bit 1: o), by
 // window and position in scan order; rewritten by every scan
@@ -208,6 +229,80 @@ struct GridOps {
   }
 };
 
+// The row entry's backend: one block runs a whole row (at most
+// kRowMaxChars chars) with its planes in shared memory; a pass ends in
+// __syncthreads. A scan runs over tiles of blockDim words in order: a
+// thread's word in 5 shift steps, a warp's 32 words through two ballots,
+// the warps in shared memory, the state carried from tile to tile.
+struct RowOps {
+  uint32_t* planes;  // STARTS_PLANES x C words of dynamic shared memory
+  int C;
+  int next;
+  Shared* sh;
+
+  TD_FN uint32_t* plane() {
+#ifdef __CUDA_ARCH__
+    if (next >= td::STARTS_PLANES) __trap();
+#endif
+    return planes + (size_t)(next++) * C;
+  }
+
+  template <class F>
+  TD_FN void each(const F& f) {
+#ifdef __CUDA_ARCH__
+    for (int w = threadIdx.x; w < C; w += blockDim.x) f(w);
+    __syncthreads();
+#endif
+  }
+
+  template <class F>
+  TD_FN void scan(uint32_t* out, const F& f, bool rev) {
+#ifdef __CUDA_ARCH__
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int nw = blockDim.x >> 5;
+    int t = 0;
+    for (int base = 0; base < C; base += blockDim.x, ++t) {
+      const int i = base + tid;
+      const int w = rev ? C - 1 - i : i;
+      uint32_t Z = 0u, O = 0xFFFFFFFFu;  // identity beyond the row
+      if (i < C) {
+        const td::ZO v = f(w);
+        Z = rev ? td::brev32(v.z) : v.z;
+        O = rev ? td::brev32(v.o) : v.o;
+      }
+      td::zo_prefix(Z, O);
+      // lanes' word maps -> inclusive prefix across the warp
+      uint32_t wz = __ballot_sync(0xFFFFFFFFu, (Z >> 31) & 1u);
+      uint32_t wo = __ballot_sync(0xFFFFFFFFu, (O >> 31) & 1u);
+      td::zo_prefix(wz, wo);
+      if (lane == 31) {
+        sh->wz[warp] = wz >> 31;
+        sh->wo[warp] = wo >> 31;
+      }
+      __syncthreads();
+      uint32_t* st = sh->state + (t & 1) * 33;
+      if (warp == 0) {
+        const uint32_t c = t == 0 ? 0u : sh->state[((t - 1) & 1) * 33 + nw];
+        uint32_t xz = __ballot_sync(0xFFFFFFFFu, lane < nw ? sh->wz[lane] : 0u);
+        uint32_t xo = __ballot_sync(0xFFFFFFFFu, lane < nw ? sh->wo[lane] : 1u);
+        td::zo_prefix(xz, xo);
+        if (lane == 0) st[0] = c;
+        if (lane < nw) st[lane + 1] = ((c ? xo : xz) >> lane) & 1u;
+      }
+      __syncthreads();
+      const uint32_t cw = st[warp];
+      const uint32_t ct =
+          lane == 0 ? cw : (((cw ? wo : wz) >> (lane - 1)) & 1u);
+      if (i < C) {
+        const uint32_t s = ct ? O : Z;
+        out[w] = rev ? td::brev32(s) : s;
+      }
+    }
+    __syncthreads();
+#endif
+  }
+};
+
 // Counts the passes of a derivation without touching memory.
 struct CountOps {
   int C;
@@ -285,6 +380,23 @@ piece_starts_words_kernel(const int32_t* words, const int32_t* nchars, int N,
   const uint32_t* S = td::derive_window_words(o, words + (size_t)b * N,
                                               nchars[b], profile, N);
   store_plane_major(S, o.C, out);
+}
+
+// Row entry: block b derives row b of codepoints in shared memory and
+// writes its plane-major words with the any-C transpose.
+__global__ void __launch_bounds__(kRowThreads)
+piece_starts_row_kernel(const int32_t* cp, const int32_t* nchars, int N,
+                        int profile, const uint16_t* table, uint32_t* out) {
+  extern __shared__ uint32_t s_planes[];
+  __shared__ Shared sh;
+  const int b = blockIdx.x;
+  const int C = N / 32;
+  RowOps o{s_planes, C, 0, &sh};
+  const uint32_t* S = td::derive_window_cp(o, cp + (size_t)b * N, nchars[b],
+                                           table, profile, N);
+  uint32_t* ob = out + (size_t)b * C;
+  for (int w = threadIdx.x; w < C; w += blockDim.x)
+    ob[w] = td::plane_major_word(S, C, w);
 }
 
 // The blocks of `kernel` the card holds at once (at most kMaxBlocks).
@@ -420,6 +532,25 @@ int td_piece_starts_words(const void* words, const void* nchars, int B,
                       (uint32_t*)scratch + b0 * sw,
                       (uint32_t*)out + (size_t)b0 * (N / 32));
       });
+}
+
+// Row entry: cp (B, N) int32 codepoints, nchars (B,) int32 valid lengths,
+// table as for td_piece_starts_cp, out (B, N/32) uint32 plane-major words.
+// N must be a multiple of 32 and at most kRowMaxChars; one ordinary block
+// per row, no scratch.
+int td_piece_starts_cp_rows(const void* cp, const void* nchars, int B, int N,
+                            int profile, const void* table, void* out,
+                            void* stream) {
+  if (N < 32 || N % 32 || N > kRowMaxChars || B < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const int C = N / 32;
+  const int threads = (C + 31) / 32 * 32;
+  const size_t smem = (size_t)td::STARTS_PLANES * C * sizeof(uint32_t);
+  piece_starts_row_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)cp, (const int32_t*)nchars, N, profile,
+      (const uint16_t*)table, (uint32_t*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

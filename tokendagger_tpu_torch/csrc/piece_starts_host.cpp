@@ -7,8 +7,10 @@
 // another in the order the card's blocks combine them (each segment's map
 // first, then each segment's carry-in composed from the maps before it in
 // scan order, then its words), so the segmented scan is checked here too.
-// The card-only parts of the kernel (the warp ballots, the grid barrier
-// and the ballot transpose) are checked on the card.
+// Its output goes through the row entry's any-width transpose
+// (plane_major_word), which rows of 256 chars need. The card-only
+// parts of the kernel (the warp ballots, the barriers, shared memory and
+// the ballot transpose) are checked on the card.
 #include <stdint.h>
 
 #include <vector>
@@ -78,16 +80,10 @@ struct SegOps {
   }
 };
 
+// The row entry's transpose (any C), which equals the window entries'
+// 32x32-bit ballot transpose wherever C % 32 == 0.
 void store_plane_major(const uint32_t* St, int C, uint32_t* ob) {
-  const int groups = C / 32;
-  for (int wp = 0; wp < C; ++wp) {
-    uint32_t v = 0u;
-    for (int j = 0; j < 32; ++j) {
-      const uint32_t x = St[j * groups + (wp >> 5)];
-      v |= ((x >> (wp & 31)) & 1u) << j;
-    }
-    ob[wp] = v;
-  }
+  for (int wp = 0; wp < C; ++wp) ob[wp] = td::plane_major_word(St, C, wp);
 }
 
 // Runs derive(ops, b) for every window b with S segments; returns the

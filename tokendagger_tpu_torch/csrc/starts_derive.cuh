@@ -682,6 +682,19 @@ TD_FN uint32_t* derive_masks(O& o, const Masks& M, int profile, int n) {
   return out;
 }
 
+// Output word wp of the reference's plane-major layout (bit j = flag of
+// char j*C + wp) gathered bit by bit from the char-major words S. Any C:
+// the card's window entries transpose 32x32-bit groups with ballots, which
+// needs C % 32 == 0; a row of 256 chars has C = 8.
+TD_FN uint32_t plane_major_word(const uint32_t* S, int C, int wp) {
+  uint32_t v = 0u;
+  for (int j = 0; j < 32; ++j) {
+    const int ch = j * C + wp;
+    v |= ((S[ch >> 5] >> (ch & 31)) & 1u) << j;
+  }
+  return v;
+}
+
 // Whole ASCII window: bytes -> char-major start words.
 template <class O>
 TD_FN uint32_t* derive_window(O& o, const uint8_t* data, int m,

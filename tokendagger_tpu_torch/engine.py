@@ -15,6 +15,17 @@ fixed-shape windows (the stream path of the JAX package's
 One small device-to-host copy then reads the overflow flag, the id count,
 the miss count and the consumed bytes; the ids and miss spans follow.
 
+``encode_streams`` packs four or more short complete segments (at most
+4,096 B) into (rows, width) grids, resolved many per launch by
+``ops/batched.resolve_grid`` with the same stages; the rest take the
+window path. Both give the same ids, so routing is a batching choice.
+
+Several threads may encode through one engine (``corpus.CorpusProcessor``
+runs a thread pool): one lock holds each window's and each grid's device
+section (staging, the stage launches and the reads back) to one thread at
+a time, and every update of ``stats`` goes through ``_tally`` under it.
+Miss splicing and the other host work run outside it.
+
 A window is cut at a *safe* offset (``_safe_cut_threshold``): pieces that
 end before the start of the character-class run touching the window's end
 (minus lookahead slack) cannot change with the bytes after it; the rest is
@@ -27,8 +38,9 @@ the slot capacity, and a class run longer than the largest window, take
 
 from __future__ import annotations
 
+import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import AbstractSet, Iterator
 
 import numpy as np
@@ -36,6 +48,7 @@ import torch
 
 from .convert import EngineTables, engine_tables_from_ranks
 from .hostengine import HostEngine, byte_pair_merge
+from .ops.batched import ROW_WIDTHS, grid_rows, resolve_grid
 from .ops.bitplane import piece_starts_chars
 from .ops.compact import compact_piece_keys
 from .ops.fused import SENTINEL, caps_for, finalize_host
@@ -82,10 +95,18 @@ class EngineStats:
     grown_windows: int = 0         # windows retried larger (no safe cut)
     host_advance_windows: int = 0  # overflow / over-long runs, host-encoded
     spliced_pieces: int = 0        # device misses merged on the host
+    grid_rows: int = 0             # short segments resolved in grids
+    # (rows, width) grids run, by width
+    grids_by_width: dict[int, int] = field(default_factory=dict)
     safe_cut_s: float = 0.0        # _safe_cut_threshold
     device_s: float = 0.0          # staging + pipeline + the scalar read
     drain_s: float = 0.0           # id copy-back + miss splice
     host_s: float = 0.0            # _host_advance
+    grid_s: float = 0.0            # staging + grid stages + reads + splice
+
+    @property
+    def grids(self) -> int:
+        return sum(self.grids_by_width.values())
 
 
 class DeviceEngine:
@@ -126,6 +147,19 @@ class DeviceEngine:
         self._window = CPU_WINDOW if cpu else CARD_WINDOW
         self._max_window = CPU_WINDOW if cpu else MAX_WINDOW
         self.stats = EngineStats()
+        self._lock = threading.Lock()
+
+    def _tally(self, **deltas) -> None:
+        """Add ``deltas`` to the fields of ``stats``, under the lock; a
+        dict delta adds key by key (``grids_by_width``)."""
+        with self._lock:
+            for k, v in deltas.items():
+                if isinstance(v, dict):
+                    d = getattr(self.stats, k)
+                    for kk, vv in v.items():
+                        d[kk] = d.get(kk, 0) + vv
+                else:
+                    setattr(self.stats, k, getattr(self.stats, k) + v)
 
     # ==================================================================
     # Stream path (fixed-shape windowed scanning)
@@ -175,7 +209,7 @@ class DeviceEngine:
         consumed_bytes) so the caller resumes the device path right after
         it."""
         t = time.perf_counter()
-        self.stats.host_advance_windows += 1
+        self._tally(host_advance_windows=1)
         n = len(data)
         wsize = max(self._max_window, 1 << 16) * 4
         while True:
@@ -185,7 +219,7 @@ class DeviceEngine:
             text = data[base:end].decode("utf-8", errors="strict")
             if end >= n:
                 ids = self.host.encode_ordinary(text)
-                self.stats.host_s += time.perf_counter() - t
+                self._tally(host_s=time.perf_counter() - t)
                 return np.asarray(ids, dtype=np.int64), n - base
             rs_c = _safe_cut_chars(text)
             last_end_c = 0
@@ -199,7 +233,7 @@ class DeviceEngine:
                 continue
             prefix = text[:last_end_c]
             ids = self.host.encode_ordinary(prefix)
-            self.stats.host_s += time.perf_counter() - t
+            self._tally(host_s=time.perf_counter() - t)
             return np.asarray(ids, dtype=np.int64), len(prefix.encode("utf-8"))
 
     def window_pipeline(self, data: torch.Tensor, nbytes: torch.Tensor,
@@ -221,32 +255,32 @@ class DeviceEngine:
     def _fused_window(self, window: bytes, trim: int):
         """Run the device stages on one window. Returns (flat ids | None on
         capacity overflow, consumed_bytes)."""
-        t = time.perf_counter()
-        n = len(window)
-        N = next(s for s in SCAN_SIZES if s >= n)
-        buf = np.zeros((1, N), dtype=np.uint8)
-        buf[0, :n] = np.frombuffer(window, dtype=np.uint8)
-        data = torch.from_numpy(buf).to(self.device)
-        nb = torch.tensor([n], dtype=torch.int32, device=self.device)
-        (flat, total, _np, _nk, consumed, overflow, ms_s, ms_l,
-         n_ms) = self.window_pipeline(data, nb, trim)
-        # the one synchronizing read of the window's scalars
-        ovf, total_i, n_ms_i, consumed_i = torch.stack(
-            [overflow.to(torch.int32), total, n_ms, consumed],
-            dim=1)[0].tolist()
-        self.stats.windows += 1
-        t2 = time.perf_counter()
-        self.stats.device_s += t2 - t
+        with self._lock:
+            t = time.perf_counter()
+            n = len(window)
+            N = next(s for s in SCAN_SIZES if s >= n)
+            buf = np.zeros((1, N), dtype=np.uint8)
+            buf[0, :n] = np.frombuffer(window, dtype=np.uint8)
+            data = torch.from_numpy(buf).to(self.device)
+            nb = torch.tensor([n], dtype=torch.int32, device=self.device)
+            (flat, total, _np, _nk, consumed, overflow, ms_s, ms_l,
+             n_ms) = self.window_pipeline(data, nb, trim)
+            # the one synchronizing read of the window's scalars
+            ovf, total_i, n_ms_i, consumed_i = torch.stack(
+                [overflow.to(torch.int32), total, n_ms, consumed],
+                dim=1)[0].tolist()
+            t2 = time.perf_counter()
+            if not ovf:
+                ids = flat[0, :total_i].cpu().numpy().astype(np.int64)
+                os_s = ms_s[0, :n_ms_i].cpu().numpy()
+                os_l = ms_l[0, :n_ms_i].cpu().numpy()
         if ovf:
+            self._tally(windows=1, device_s=t2 - t)
             return None, 0
-        ids = flat[0, :total_i].cpu().numpy().astype(np.int64)
         if n_ms_i:
-            self.stats.spliced_pieces += n_ms_i
-            ids = self._splice_oversize(ids, window,
-                                        ms_s[0, :n_ms_i].cpu().numpy(),
-                                        ms_l[0, :n_ms_i].cpu().numpy(),
-                                        n_ms_i)
-        self.stats.drain_s += time.perf_counter() - t2
+            ids = self._splice_oversize(ids, window, os_s, os_l, n_ms_i)
+        self._tally(windows=1, device_s=t2 - t, spliced_pieces=n_ms_i,
+                    drain_s=time.perf_counter() - t2)
         return ids, consumed_i
 
     def _splice_oversize(self, ids: np.ndarray, window: bytes,
@@ -291,7 +325,7 @@ class DeviceEngine:
             else:
                 t = time.perf_counter()
                 trim = self._safe_cut_threshold(window)
-                self.stats.safe_cut_s += time.perf_counter() - t
+                self._tally(safe_cut_s=time.perf_counter() - t)
             result = (None, 0)
             if trim > 0:
                 result = self._fused_window(window, trim)
@@ -309,7 +343,7 @@ class DeviceEngine:
                 # spans it). Grow the window (fixed shapes, up to the cap)...
                 if win < self._max_window and win < n - base:
                     win = min(win * 4, self._max_window)
-                    self.stats.grown_windows += 1
+                    self._tally(grown_windows=1)
                     continue
                 # ...then runs longer than the cap take the exact host
                 # route, but only past the run — the device path resumes.
@@ -321,18 +355,67 @@ class DeviceEngine:
             out.append(ids)
             base += consumed
             if not is_final:
-                self.stats.cut_windows += 1
+                self._tally(cut_windows=1)
             win = self._window
         if not out:
             return np.zeros(0, dtype=np.int64)
         return np.concatenate(out)
 
     def encode_streams(self, segments: list[bytes]) -> list[np.ndarray]:
-        """Ordinary-encode each byte segment. Every segment takes
-        ``encode_stream``; the JAX package's batched grid for many short
-        segments (a batching choice with the same ids) is not ported."""
-        return [self.encode_stream(s) if s else np.zeros(0, dtype=np.int64)
-                for s in segments]
+        """Ordinary-encode each byte segment. With four or more non-empty
+        segments of at most ``ROW_WIDTHS[-1]`` bytes, those go through
+        (rows, width) grids (``_encode_small_batched``); every other
+        segment takes ``encode_stream``."""
+        out: list[np.ndarray | None] = [None] * len(segments)
+        small: list[tuple[int, bytes]] = []
+        for i, s in enumerate(segments):
+            if not s:
+                out[i] = np.zeros(0, dtype=np.int64)
+            elif len(s) <= ROW_WIDTHS[-1]:
+                small.append((i, s))
+        if len(small) >= 4:  # grids pay off only with several rows
+            self._encode_small_batched(small, out)
+        for i, s in enumerate(segments):
+            if out[i] is None:
+                out[i] = self.encode_stream(s)
+        return out  # type: ignore[return-value]
+
+    def _encode_small_batched(self, items: list[tuple[int, bytes]],
+                              out: list[np.ndarray | None]) -> None:
+        """Resolve (index, segment) pairs through grids bucketed by width
+        (the smallest of ``ROW_WIDTHS`` that holds the segment), at most
+        ``grid_rows(width)`` rows a grid, each row 0-padded; the ids land
+        in ``out`` at each segment's index."""
+        by_width: dict[int, list[tuple[int, bytes]]] = {
+            w: [] for w in ROW_WIDTHS}
+        for i, s in items:
+            by_width[next(w for w in ROW_WIDTHS if len(s) <= w)].append(
+                (i, s))
+        for w, group in by_width.items():
+            rows = grid_rows(w)
+            for lo in range(0, len(group), rows):
+                batch = group[lo : lo + rows]
+                buf = np.zeros((len(batch), w), dtype=np.uint8)
+                lens = np.zeros(len(batch), dtype=np.int32)
+                for r, (_, s) in enumerate(batch):
+                    buf[r, : len(s)] = np.frombuffer(s, dtype=np.uint8)
+                    lens[r] = len(s)
+                with self._lock:
+                    t = time.perf_counter()
+                    flat, total, ms_s, ms_l, n_ms = resolve_grid(
+                        buf, lens, vhash_rows=self.tables.vhash8_rows,
+                        vhash_mask=self.tables.vhash8_mask,
+                        profile=self._profile)
+                for r, (i, s) in enumerate(batch):
+                    ids = flat[r, : total[r]].astype(np.int64)
+                    k = int(n_ms[r])
+                    if k:
+                        ids = self._splice_oversize(ids, s, ms_s[r],
+                                                    ms_l[r], k)
+                    out[i] = ids
+                self._tally(grid_rows=len(batch), grids_by_width={w: 1},
+                            spliced_pieces=int(n_ms.sum()),
+                            grid_s=time.perf_counter() - t)
 
     # ==================================================================
     # Text-level encoding

@@ -21,7 +21,10 @@ Each of them:
 * on CUDA tensors launches kernel K1 (``csrc/piece_starts.cu``), which
   builds the class planes and runs the whole derivation in one launch
   (one per group of windows, for a batch of more windows than the card
-  holds blocks);
+  holds blocks). Codepoint rows of at most ``ROW_MAX_CHARS`` chars (the
+  batched grids' rows, and the engine's 4 KB window) take K1's row entry
+  ``piece_starts_rows`` instead: one block per row, its planes in shared
+  memory;
 * on CPU tensors runs the plain version below, a line-for-line port of
   the reference's word-space derivation.
 
@@ -716,6 +719,8 @@ def _k1_library():
     lib.td_piece_starts_passes.restype = i
     lib.td_piece_starts_blocks.argtypes = [i, i, i]
     lib.td_piece_starts_blocks.restype = i
+    lib.td_piece_starts_cp_rows.argtypes = [vp, vp, i, i, i, vp, vp, vp]
+    lib.td_piece_starts_cp_rows.restype = i
     return lib
 
 
@@ -866,6 +871,59 @@ def _launch_k1_cp(cp: torch.Tensor, m: torch.Tensor, profile: str):
     return out
 
 
+# K1's row entry takes rows of at most this many chars (N % 32 == 0); the
+# window entries take N % 1024 == 0.
+ROW_MAX_CHARS = 4096
+
+
+def _launch_k1_rows(cp: torch.Tensor, m: torch.Tensor, profile: str):
+    lib = _k1_library()
+    B, N = cp.shape
+    dev = cp.device
+    table = _class_words(profile, str(dev))
+    out = torch.empty((B, N // 32), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.td_piece_starts_cp_rows(
+            cp.data_ptr(), m.data_ptr(), B, N, _PROFILE_ID[profile],
+            table.data_ptr(), out.data_ptr(), stream)
+    if rc:
+        raise RuntimeError(
+            f"piece_starts_cp_rows kernel launch failed: CUDA error {rc}")
+    piece_starts_rows.launches += 1
+    return out
+
+
+def piece_starts_rows(cp: torch.Tensor, m: torch.Tensor, *,
+                      profile: str = "llama4") -> torch.Tensor:
+    """K1's row entry: (B, N) int32 codepoint rows of N <= ROW_MAX_CHARS
+    chars (N % 32 == 0), ``m`` (B,) int32 char counts -> (B, N/32) int32
+    plane-major start words, as ``piece_starts_chars(packed_out=True)``
+    returns them. CUDA tensors run one block per row with the row's
+    planes in shared memory; CPU tensors the plain version.
+    ``piece_starts_chars`` takes this entry for such rows."""
+    if profile not in _PROFILE_ID:
+        raise NotImplementedError(profile)
+    if cp.dim() != 2 or cp.dtype != torch.int32 or not cp.is_contiguous():
+        raise ValueError("cp must be a contiguous (B, N) int32 tensor")
+    B, N = cp.shape
+    if N % 32 or not 32 <= N <= ROW_MAX_CHARS:
+        raise ValueError(f"row length {N} is not a multiple of 32 in "
+                         f"[32, {ROW_MAX_CHARS}]")
+    if (m.shape != (B,) or m.dtype != torch.int32 or m.device != cp.device
+            or not m.is_contiguous()):
+        raise ValueError("m must be a contiguous (B,) int32 tensor on the "
+                         "rows' device")
+    if cp.is_cuda:
+        return _launch_k1_rows(cp, m, profile)
+    if cp.device.type != "cpu":
+        raise ValueError(f"unsupported device {cp.device}")
+    return piece_starts_chars_plain(cp, m, profile=profile)
+
+
+piece_starts_rows.launches = 0
+
+
 def piece_starts_chars(cp: torch.Tensor, m, *, profile: str = "llama4",
                        packed_out: bool = False, hot_cps=None,
                        u_cap: int | None = None):
@@ -873,9 +931,11 @@ def piece_starts_chars(cp: torch.Tensor, m, *, profile: str = "llama4",
 
     ``cp`` (N,) or (B, N) int32 codepoints (anything at or beyond ``m``),
     ``m`` a scalar or (B,) int32 char counts on the same device; N a
-    multiple of 1024. Returns bool flags of ``cp``'s shape, or with
-    ``packed_out`` the (B, N/32) int32 plane-major words. CUDA tensors
-    run kernel K1 (codepoint entry); CPU tensors the plain version.
+    multiple of 32 up to ROW_MAX_CHARS, else of 1024. Returns bool flags
+    of ``cp``'s shape, or with ``packed_out`` the (B, N/32) int32
+    plane-major words. CUDA tensors run kernel K1: rows of at most
+    ROW_MAX_CHARS chars its row entry (``piece_starts_rows``), longer
+    windows its codepoint entry; CPU tensors the plain version.
 
     With ``hot_cps`` (and ``u_cap``) the classes come from
     ``class_lookup_hot`` over ``char_class_words(profile)`` and K1 runs
@@ -889,8 +949,9 @@ def piece_starts_chars(cp: torch.Tensor, m, *, profile: str = "llama4",
     if c2.dim() != 2 or c2.dtype != torch.int32 or not c2.is_contiguous():
         raise ValueError("cp must be a contiguous (N,) or (B, N) int32 tensor")
     B, N = c2.shape
-    if N % 1024:
-        raise ValueError(f"window length {N} is not a multiple of 1024")
+    if N % (32 if N <= ROW_MAX_CHARS else 1024) or N == 0:
+        raise ValueError(f"window length {N} is not a multiple of 32 up to "
+                         f"{ROW_MAX_CHARS}, or of 1024")
     m2 = torch.as_tensor(m, device=cp.device).to(torch.int32).reshape(-1)
     if m2.shape != (B,):
         raise ValueError(f"m must hold {B} char counts")
@@ -904,6 +965,8 @@ def piece_starts_chars(cp: torch.Tensor, m, *, profile: str = "llama4",
         cls, ovf = class_lookup_hot(c2, m2, hot_cps=hot_cps, u_cap=u_cap,
                                     table=char_class_words(profile))
         words = piece_starts_words(cls, m2, profile=profile)
+    elif N <= ROW_MAX_CHARS:
+        words = piece_starts_rows(c2, m2, profile=profile)
     elif cp.is_cuda:
         words = _launch_k1_cp(c2, m2, profile)
     else:

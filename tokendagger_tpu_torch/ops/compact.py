@@ -34,6 +34,7 @@ are int32 tensors carrying the uint32 bits.
 from __future__ import annotations
 
 import ctypes
+import threading
 from contextlib import contextmanager
 from functools import lru_cache
 
@@ -90,7 +91,7 @@ def compact_by_mask_plain(arrays, mask: torch.Tensor, *, fill: int = 0):
     for a in arrays:
         buf = torch.full((B, P + 1), fill, dtype=a.dtype, device=a.device)
         buf.scatter_(1, slot, a)
-        outs.append(buf[:, :P])
+        outs.append(buf[:, :P].contiguous())
     return outs
 
 
@@ -198,18 +199,25 @@ def _launch_k2k3(starts, data, nbytes, p_cap: int, packed: bool):
 # with a new epoch, so they are zeroed once, when allocated, and never
 # cleared. Launches on one stream run one after another; a launch on
 # another stream gets its own words, since one whose statuses another
-# overwrote would wait for them forever.
+# overwrote would wait for them forever. Threads may launch on one stream
+# (the engine under a thread pool), so the epoch bump and the growth of a
+# buffer are made under a module lock: two launches that got one epoch
+# could each read the other's statuses as their own.
 _STATUS: dict = {}
+_STATUS_LOCK = threading.Lock()
 
 
-def _status(key, words: int):
-    st = _STATUS.get(key)
-    if st is None or st[0].numel() < words:
-        st = _STATUS[key] = [
-            torch.zeros(max(words, 4096), dtype=torch.int64, device=key[1]),
-            0]
-    st[1] = st[1] % ((1 << 30) - 1) + 1
-    return st
+def _status(key, words: int) -> tuple[torch.Tensor, int]:
+    """The status words of ``key`` (at least ``words``) and a new epoch."""
+    with _STATUS_LOCK:
+        st = _STATUS.get(key)
+        if st is None or st[0].numel() < words:
+            st = _STATUS[key] = [
+                torch.zeros(max(words, 4096), dtype=torch.int64,
+                            device=key[1]),
+                0]
+        st[1] = st[1] % ((1 << 30) - 1) + 1
+        return st[0], st[1]
 
 
 def _launch_k4(arrays, mask, fill: int):

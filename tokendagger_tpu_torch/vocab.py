@@ -7,6 +7,7 @@ src/main.cpp:89-137):
 1. tiktoken ``.model`` files: lines of ``base64(token_bytes) rank``.
 2. HuggingFace ``tokenizer_config.json``: special tokens from
    ``added_tokens_decoder[id].content``.
+3. Mistral Tekken ``tekken.json`` (``load_tekken``).
 
 All loaders return plain Python data (``dict[bytes, int]`` etc.).
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import base64
 import json
 from pathlib import Path
+from typing import Any
 
 # The Llama-4 (o200k-family) pretokenizer pattern, hardcoded by the reference
 # command-line tool (src/main.cpp:114) and its conformance test
@@ -127,6 +129,46 @@ def load_hf_special_tokens(path: str | Path) -> dict[str, int]:
     return out
 
 
+def load_tekken(
+    path: str | Path,
+    *,
+    include_special_tokens: bool = True,
+) -> dict[str, Any]:
+    """Load a Mistral Tekken ``tekken.json``.
+
+    Applies the Tekken rank convention: the first
+    ``default_num_special_tokens`` ids are specials; ordinary vocab entry
+    ``i`` (for ``i < default_vocab_size - default_num_special_tokens``)
+    maps to rank ``i + default_num_special_tokens``.
+
+    Returns ``{"pattern": str, "mergeable_ranks": dict[bytes,int],
+    "special_tokens": dict[str,int], "config": dict}``.
+    """
+    with open(path, "r", encoding="utf-8") as f:
+        data = json.load(f)
+    cfg = data["config"]
+    num_special = cfg["default_num_special_tokens"]
+    max_vocab = cfg["default_vocab_size"] - num_special
+
+    ranks: dict[bytes, int] = {}
+    for i, item in enumerate(data["vocab"]):
+        if i >= max_vocab:
+            break
+        ranks[base64.b64decode(item["token_bytes"])] = i + num_special
+
+    special_tokens: dict[str, int] = {}
+    if include_special_tokens:
+        for item in data.get("special_tokens", []):
+            special_tokens[item["token_str"]] = item["rank"]
+
+    return {
+        "pattern": cfg["pattern"],
+        "mergeable_ranks": ranks,
+        "special_tokens": special_tokens,
+        "config": cfg,
+    }
+
+
 def vocab_list_to_ranks(vocab: list[dict]) -> dict[bytes, int]:
     """Convert the list-of-dicts vocab format (``{"rank": int,
     "token_bytes": list[int] | str, "token_string": str}``) to mergeable
@@ -140,3 +182,11 @@ def vocab_list_to_ranks(vocab: list[dict]) -> dict[bytes, int]:
             tb = tb.encode("utf-8")
         ranks[tb] = item["rank"]
     return ranks
+
+
+def ranks_to_vocab_list(ranks: dict[bytes, int]) -> list[dict]:
+    """Inverse of :func:`vocab_list_to_ranks` (for API compat)."""
+    return [
+        {"rank": rank, "token_bytes": list(tb), "token_string": ""}
+        for tb, rank in ranks.items()
+    ]

@@ -23,7 +23,9 @@ emit the same ids.
 
 from __future__ import annotations
 
+import bisect
 import json
+import threading
 from pathlib import Path
 from typing import AbstractSet, Collection, Literal, Sequence
 
@@ -34,7 +36,7 @@ from .convert import (
     EngineTables, decode_tables_from_ranks, engine_tables_from_ranks,
 )
 from .engine import DeviceEngine, unsupported_reason
-from .hostengine import HostEngine
+from .hostengine import HostEngine, byte_pair_merge
 from .vocab import vocab_list_to_ranks
 
 _BACKENDS = ("device", "host", "auto")
@@ -124,6 +126,9 @@ class Tokenizer:
         self._decode = None         # decode tables on the device, lazily
         self._decode_lengths = None  # numpy copy of their lengths
         self._sorted_bytes = None   # token_byte_values, built lazily
+        self._unstable_aux = None   # encode_with_unstable's tables, lazily
+        # one DeviceEngine however many threads ask for it first
+        self._device_lock = threading.Lock()
         # frozenset identity marks the common "disallow all specials" case
         # so the bigram prefilter groups are computed once
         self._all_specials_frozen = frozenset(self._special_tokens)
@@ -138,17 +143,18 @@ class Tokenizer:
     _DEVICE_MIN_BYTES = 16384
 
     def _get_device(self):
-        if self._device is None:
-            tables = self._tables
-            if tables is None and self._decode is not None:
-                tables = engine_tables_from_ranks(
-                    self._mergeable_ranks, self._special_tokens,
-                    device=self.device, decode=self._decode)
-            self._device = DeviceEngine(
-                self.pattern, self._mergeable_ranks, self._special_tokens,
-                device=self.device, tables=tables)
-            self._tables = self._device.tables
-        return self._device
+        with self._device_lock:
+            if self._device is None:
+                tables = self._tables
+                if tables is None and self._decode is not None:
+                    tables = engine_tables_from_ranks(
+                        self._mergeable_ranks, self._special_tokens,
+                        device=self.device, decode=self._decode)
+                self._device = DeviceEngine(
+                    self.pattern, self._mergeable_ranks, self._special_tokens,
+                    device=self.device, tables=tables)
+                self._tables = self._device.tables
+            return self._device
 
     def _use_device(self, nbytes: int) -> bool:
         """Size routing, for decode and (through ``_encode_on_device``)
@@ -255,6 +261,117 @@ class Tokenizer:
         ids = self.encode(text, allowed_special=allowed_special,
                           disallowed_special=disallowed_special)
         return np.asarray(ids, dtype=np.uint32)
+
+    # Unicode White_Space codepoints (Rust char::is_whitespace semantics;
+    # Python str.isspace() also accepts U+001C..001F, which would diverge
+    # from tiktoken here)
+    _WHITE_SPACE = frozenset(
+        [0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x20, 0x85, 0xA0, 0x1680]
+        + list(range(0x2000, 0x200B)) + [0x2028, 0x2029, 0x202F, 0x205F,
+                                         0x3000])
+
+    def _get_unstable_aux(self):
+        """(sorted vocab byte strings, rank -> bytes), built lazily for
+        encode_with_unstable."""
+        if self._unstable_aux is None:
+            self._unstable_aux = (
+                sorted(self._mergeable_ranks),
+                {v: k for k, v in self._mergeable_ranks.items()},
+            )
+        return self._unstable_aux
+
+    def encode_with_unstable(
+        self,
+        text: str,
+        *,
+        allowed_special: Literal["all"] | AbstractSet[str] = set(),
+        disallowed_special: Literal["all"] | Collection[str] = "all",
+    ) -> tuple[list[int], list[list[int]]]:
+        """tiktoken-compatible unstable-token analysis: the stable prefix
+        of ``encode(text)`` plus every token sequence the unstable tail
+        could begin with if more text were appended. Host engine only.
+
+        The unstable region is the last pretoken's tokens, widened across
+        trailing all-space tokens (whitespace splits move as text grows);
+        completions are (a) every vocab token extending the unstable
+        bytes and (b) for each split point, re-encodings of unstable
+        prefix + any vocab token extending the suffix, truncated once they
+        cover the unstable bytes; plus the whitespace boundary re-split
+        case."""
+        allowed, disallowed = self._resolve_special(allowed_special,
+                                                    disallowed_special)
+        self._check_disallowed(text, disallowed)
+        tokens, lptl = self._host.encode(text, allowed)
+        stb, dec = self._get_unstable_aux()
+        ranks = self._mergeable_ranks
+
+        def all_space(tid: int) -> bool:
+            b = dec.get(tid)
+            return b is not None and all(c in b" \n\t" for c in b)
+
+        if lptl > 0 and all_space(tokens[len(tokens) - lptl]):
+            while (lptl < len(tokens)
+                   and all_space(tokens[len(tokens) - lptl - 1])):
+                lptl += 1
+        if lptl == 0:
+            return tokens, []
+        unstable = b"".join(dec[t] for t in tokens[len(tokens) - lptl:])
+        stable = tokens[: len(tokens) - lptl]
+        if not unstable:
+            return stable, []
+        completions: set[tuple[int, ...]] = set()
+
+        # (a) single vocab tokens that extend (or equal) the unstable bytes
+        i = bisect.bisect_left(stb, unstable)
+        while i < len(stb) and stb[i].startswith(unstable):
+            completions.add((ranks[stb[i]],))
+            i += 1
+
+        # (b) a token may straddle any internal position of the unstable
+        # bytes: complete the suffix with every vocab token extending it,
+        # re-encode, and keep the sequence prefix covering unstable
+        for k in range(1, len(unstable)):
+            prefix, suffix = unstable[:k], unstable[k:]
+            i = bisect.bisect_left(stb, suffix)
+            while i < len(stb) and stb[i].startswith(suffix):
+                candidate = prefix + stb[i]
+                try:
+                    enc_ids = self._host.encode_ordinary(
+                        candidate.decode("utf-8"))
+                except UnicodeDecodeError:
+                    enc_ids = byte_pair_merge(candidate, ranks)
+                seq: list[int] = []
+                covered = 0
+                for tid in enc_ids:
+                    seq.append(tid)
+                    covered += len(dec[tid])
+                    if covered >= len(unstable):
+                        break
+                completions.add(tuple(seq))
+                i += 1
+
+        # whitespace boundary instability: if the unstable bytes end in a
+        # complete whitespace char with content before it, the split may
+        # move there as text grows
+        if len(unstable) > 1:
+            ch, w = None, 0
+            for k in (1, 2, 3, 4):
+                if k > len(unstable):
+                    break
+                try:
+                    s = unstable[len(unstable) - k:].decode("utf-8")
+                except UnicodeDecodeError:
+                    continue
+                if len(s) == 1:
+                    ch, w = s, k
+                    break
+            if (ch is not None and len(unstable) - w > 0
+                    and ord(ch) in self._WHITE_SPACE):
+                re_enc = byte_pair_merge(unstable[: len(unstable) - w], ranks)
+                re_enc += byte_pair_merge(unstable[len(unstable) - w:], ranks)
+                completions.add(tuple(re_enc))
+
+        return stable, sorted(list(c) for c in completions)
 
     # ------------------------------------------------------------------
     # Decoding
