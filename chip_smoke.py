@@ -81,7 +81,31 @@
    entry (all four profiles; it gets its own row of the kernels line),
    K2+K3 on byte flags with p_cap = W, and K4 in finalize_host; times
    each at each shape.
-8. Drives the public API's other paths, each with the counts set to 0
+8. The device BPE merge (``ops/merge.merge_rows``, ``csrc/merge.cu``)
+   on the engine phase's stand-in vocabulary, whose pair table's bucket
+   count and bytes on the card it prints:
+   * the merge kernel against the plain loop on the card at the piece
+     path's shapes (8,192 rows of 16, 64 and 256 bytes) and at
+     resolve_window's 4 MB bucket caps (262,144 x 16, 32,768 x 64,
+     4,096 x 256), with and without pair_lut, on seeded random printable
+     rows and edge rows (lengths 0, 1 and W, runs of one byte, bytes
+     without ranked pairs); each shape timed as above beside its bytes
+     bound and its latency floor (the longest row's merges times one
+     dependent L2 read, measured by a pointer chase);
+   * the piece path, DeviceEngine(stream=False), over 4.5 MB of
+     multi-script text with seeded rare identifiers, with vocab_fastpath
+     True and False (every unique multi-byte piece merges on the card) and
+     with a copy of the vocabulary without b"\xff" (which takes the piece
+     path by default); ids equal to the host engine's; prints the merge
+     rows per width, the merge launches and the wall;
+   * miss_mode="device" windows of the same text, join_mode "probe" and
+     "sort": ids equal to the host engine's, rows in every merge width,
+     the oversize pieces spliced; prints rows per width, overflow windows
+     and the host-clock stage times.
+   A pattern outside the four profiles cannot run on the card (it has no
+   ``regex`` module, which HostEngine needs for such a pattern): the CPU
+   tests hold that case (tests/test_torch_engine.py, test_torch_wrapper.py).
+9. Drives the public API's other paths, each with the counts set to 0
    just before it and read just after (every kernel of the path must
    have launched), with the engine phase's stand-in vocabulary:
    * "batch": Tokenizer(backend="device").encode_batch over 10,008 texts
@@ -99,7 +123,7 @@
    * "streaming": StreamingEncoder fed 4 MB of multi-script text with
      specials in seeded chunks of 1 B-64 KB; the ids must equal one
      encode and the host engine's; prints the wall rate.
-9. Prints a "kernels" JSON line, then the card's name and power limit, and
+10. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
 
@@ -691,7 +715,8 @@ def check_engine_kernels(seed: int, dev) -> list[dict]:
 
 
 SHAPE_KEYS = ("ms", "call_ms", "plain_ms", "bound_ms", "blocks_per_window",
-              "library_ms", "launches_per_call")
+              "library_ms", "launches_per_call", "merges",
+              "longest_row_merges")
 
 
 def by_shape(times: dict) -> dict:
@@ -1851,6 +1876,250 @@ def run_streaming(seed: int, dev) -> dict:
     return launches
 
 
+# ===========================================================================
+# The device BPE merge: the kernel, the piece path, miss_mode="device"
+# ===========================================================================
+
+MERGE_SHAPES = (("piece", 8192, 16), ("piece", 8192, 64),
+                ("piece", 8192, 256), ("window", 262144, 16),
+                ("window", 32768, 64), ("window", 4096, 256))
+
+
+def merge_rows_input(seed: int, R: int, W: int, dev):
+    """(R, W) uint8 merge rows and (R,) int32 lengths on ``dev``: edge rows
+    first (lengths 0, 1 and W; runs of one byte, whose equal pairs tie;
+    bytes >= 0x80, most of whose pairs have no rank; random bytes of every
+    value), then seeded random printable ASCII, which the stand-in
+    vocabulary's random tokens merge the most, half of the rows W long."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(32, 127, (R, W)).astype(np.uint8)
+    lens = np.where(rng.random(R) < 0.5, W,
+                    rng.integers(1, W + 1, R)).astype(np.int32)
+    edge = [b"", b"a", b"a" * W, b" " * W, b"e" * W, b"-" * W,
+            bytes(rng.integers(0x80, 0x100, W).astype(np.uint8)),
+            bytes(rng.integers(0, 0x100, W).astype(np.uint8))]
+    for r, row in enumerate(edge):
+        buf[r] = rng.integers(0, 256, W)           # garbage past the length
+        buf[r, : len(row)] = np.frombuffer(row, np.uint8)
+        lens[r] = len(row)
+    return torch.from_numpy(buf).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def check_merge_kernel(seed: int, dev, mt) -> tuple[dict, float]:
+    """The merge kernel against the plain loop on the card at the piece
+    path's shapes (8,192 rows of 16, 64, 256) and resolve_window's 4 MB
+    bucket caps, with and without pair_lut; times each shape as the
+    piece path (no pair_lut) or the window (pair_lut) calls it. Returns
+    the kernels-line row and the measured dependent L2 read (ns)."""
+    from tokendagger_tpu_torch.ops import merge as M
+
+    l2_ns = M.l2_chase_ns(device=dev)
+    print(f"merge: one dependent L2 read {l2_ns:.1f} ns (pointer chase over "
+          "a 4 MB table)")
+    err, times = 0, {}
+    for i, (path, R, W) in enumerate(MERGE_SHAPES):
+        by, ln = merge_rows_input(seed + i, R, W, dev)
+        for lut in (None, mt.pair_lut):
+            got = M.merge_rows(by, ln, mt.byte_rank, mt.pair_rows,
+                               mt.pair_mask, lut)
+            want = M.merge_rows_local(by, ln, mt.byte_rank, mt.pair_rows,
+                                      mask=mt.pair_mask, pair_lut=lut)
+            e = max_abs_err(got, want)
+            err = max(err, e)
+            if e:
+                raise AssertionError(f"merge kernel differs at {(R, W)} "
+                                     f"(pair_lut {lut is not None})")
+        lut = mt.pair_lut if path == "window" else None
+        merges = (ln.to(torch.int64) - want[1]).clamp(min=0)
+        n_merges, longest = int(merges.sum()), int(merges.max())
+        pairs = int((ln.to(torch.int64) - 1).clamp(min=0).sum())
+        # bytes: rows and lengths read, ids and counts written, a 48-byte
+        # pair row per lookup (two per merge; the first round reads the
+        # lut's 4 bytes a pair, or a row a pair); ops: a scan of the row
+        # per merge
+        n_bytes = (5 * R * W + 8 * R + 96 * n_merges
+                   + pairs * (4 if lut is not None else 48))
+        t = timings(lambda: M.merge_rows(by, ln, mt.byte_rank, mt.pair_rows,
+                                         mt.pair_mask, lut),
+                    lambda: M.merge_rows_local(by, ln, mt.byte_rank,
+                                               mt.pair_rows,
+                                               mask=mt.pair_mask,
+                                               pair_lut=lut),
+                    n_bytes, n_merges * W, plain_reps=3)
+        t.update(merges=n_merges, longest_row_merges=longest,
+                 latency_floor_ms=longest * l2_ns * 1e-6)
+        key = f"{path} ({R}, {W})" + (" pair_lut" if lut is not None else "")
+        times[key] = t
+        print(f"merge kernel {key}: {show(t)}; {n_merges} merges, longest "
+              f"row {longest}: latency floor {t['latency_floor_ms']:.4f} ms "
+              f"({'latency' if t['latency_floor_ms'] > t['bound_ms'] else 'bytes'}"
+              " bound the kernel)")
+    print(f"merge kernel: max_abs_err {err} at {len(MERGE_SHAPES)} shapes x "
+          "2 (with and without pair_lut), edge rows included")
+    head = next(iter(times))
+    row = dict(name="merge", route="cuda",
+               source="tokendagger_tpu_torch/csrc/merge.cu",
+               replaces="tokendagger_tpu/ops/merge.py:96 (XLA while_loop, "
+                        "no pallas_call)",
+               max_abs_err=err, **{k: times[head][k] for k in (
+                   "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                   "latency_floor_ms")},
+               library_ms=None, l2_read_ns=l2_ns,
+               latency_floor_ms_by_shape={k: v["latency_floor_ms"]
+                                          for k, v in times.items()},
+               **by_shape(times))
+    return row, l2_ns
+
+
+def rare_text(seed: int, n_bytes: int) -> str:
+    """About n_bytes of multi-script text with a seeded rare lowercase
+    identifier of 2-256 bytes (log-uniform) about every 2 KB, and eight of
+    300-600 bytes: misses for every merge width and oversize pieces."""
+    rng = np.random.default_rng(seed)
+    base = multiscript(n_bytes, seed + 1)
+    k = len(base) // 2048
+    cuts = np.sort(rng.integers(0, len(base), k)).tolist()
+    lens = np.exp(rng.uniform(np.log(2), np.log(256), k)).astype(int)
+    lens[rng.choice(k, 8, replace=False)] = rng.integers(300, 601, 8)
+    parts, prev = [], 0
+    for c, n in zip(cuts, lens.tolist()):
+        word = "".join(chr(x) for x in rng.integers(97, 123, n))
+        parts += [base[prev:c], " ", word, " "]
+        prev = c
+    return "".join(parts + [base[prev:]])
+
+
+def run_pieces(seed: int, dev, n_bytes: int = 9 << 19
+               ) -> tuple[dict | None, dict, dict]:
+    """The device merge on the engine phase's stand-in vocabulary: its
+    kernel at every shape (``check_merge_kernel``); the piece path
+    (``DeviceEngine(stream=False)``) over 4.5 MB of multi-script text with
+    rare identifiers, with vocab_fastpath True and False and with a copy
+    of the vocabulary without b"\xff"; then miss_mode="device" windows of
+    the same text with the probe and with the sort join. Every run's ids
+    must equal the host engine's. Returns the kernels-line row, and the
+    launches of the piece path and of the device-merge windows."""
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, DeviceEngine, HostEngine
+    from tokendagger_tpu_torch.convert import merge_tables_from_ranks
+    from tokendagger_tpu_torch.ops import merge as M
+
+    t = time.perf_counter()
+    tok, host, specials = engine_tokenizer(seed, dev)
+    ranks = tok._mergeable_ranks
+    tables = tok._get_device().tables
+    mt = merge_tables_from_ranks(ranks, device=dev)
+    nb_card = sum(x.numel() * x.element_size() for x in (
+        mt.byte_rank, mt.pair_rows, mt.pair_lut, mt.vk, mt.vlen, mt.vrank))
+    print(f"pieces: merge tables of {len(ranks)} ranks: pair table "
+          f"{mt.pair_rows.shape[0]} buckets ({mt.pair_rows.numel() * 4} B), "
+          f"{nb_card} B on the card in all, built in "
+          f"{time.perf_counter() - t:.1f} s (with the tokenizer)")
+    row = check_merge_kernel(seed + 60, dev, mt)[0] if dev != "cpu" else None
+
+    text = rare_text(seed + 61, n_bytes)
+    nbytes = len(text.encode())
+    t = time.perf_counter()
+    want = host.encode_ordinary(text)
+    pieces = {text[a:b].encode() for a, b in host.split_spans(text)}
+    n_multi = sum(1 < len(p) <= 256 for p in pieces)
+    print(f"pieces: text {nbytes} B, {len(pieces)} unique pieces "
+          f"({n_multi} of 2-256 bytes), host ids in "
+          f"{time.perf_counter() - t:.1f} s")
+    counters = {"merge": M.merge_rows}
+    launches: dict = {}
+    no_ff = {b: r for b, r in ranks.items() if b != b"\xff"}
+    runs = (("vocab_fastpath=True", ranks, True),
+            ("vocab_fastpath=False", ranks, False),
+            ('without b"\\xff"', no_ff, True))
+    for label, rk, fast in runs:
+        eng = DeviceEngine(LLAMA4_PATTERN, rk, specials, device=dev,
+                           vocab_fastpath=fast,
+                           stream=False if rk is ranks else None,
+                           tables=tables if rk is ranks else None)
+        if eng.stream:
+            raise AssertionError("a vocabulary without a byte rank took the "
+                                 "stream path")
+        eng.encode_ordinary_batch([text[: 1 << 16]])   # warm-up, tables
+        eng.stats = type(eng.stats)()
+        ids, wall, n = count_runs(
+            counters, lambda: eng.encode_ordinary_batch([text])[0])
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        st = eng.stats
+        rows = dict(sorted(st.merge_rows_by_width.items()))
+        print(f"pieces {label}: {nbytes} B in {wall:.4f} s = "
+              f"{nbytes / 1e6 / wall:.2f} MB/s wall; merge rows by width "
+              f"{json.dumps(rows)}, {n['merge']} merge launches, merge "
+              f"time {st.merge_s:.4f} s")
+        if dev != "cpu" and n["merge"] == 0:
+            raise AssertionError(f"pieces {label}: the merge never launched")
+        if not fast and sum(rows.values()) != n_multi:
+            raise AssertionError(f"pieces {label}: {sum(rows.values())} "
+                                 f"rows merged, not the {n_multi} unique "
+                                 "multi-byte pieces")
+        want_here = want if rk is ranks else HostEngine(
+            LLAMA4_PATTERN, rk, specials).encode_ordinary(text)
+        if ids != want_here:
+            raise AssertionError(f"pieces {label}: ids differ from the host "
+                                 f"engine at id {first_diff(ids, want_here)}")
+    print("pieces: every piece-path run equals the host engine "
+          f"({len(want)} ids)")
+
+    # miss_mode="device" windows of the same text
+    eng = DeviceEngine(LLAMA4_PATTERN, ranks, specials, device=dev,
+                       tables=tables)
+    eng.miss_mode = "device"
+    counters = {**engine_counters(), "merge": M.merge_rows}
+    window_launches: dict = {}
+    for join in ("probe", "sort"):
+        eng.join_mode = join
+        eng.encode_stream(text.encode()[: 1 << 20])      # warm-up
+        eng.stats = type(eng.stats)()
+        ids, wall, n = count_runs(
+            counters, lambda: eng.encode_stream(text.encode()).tolist())
+        for k, v in n.items():
+            window_launches[k] = window_launches.get(k, 0) + v
+        st = eng.stats
+        rows = dict(sorted(st.merge_rows_by_width.items()))
+        print(f"window miss_mode=device join_mode={join}: {nbytes} B in "
+              f"{wall:.4f} s = {nbytes / 1e6 / wall:.2f} MB/s wall; "
+              f"{st.windows} windows ({st.cut_windows} cut), "
+              f"{st.host_advance_windows} overflow; merge rows by width "
+              f"{json.dumps(rows)}; {st.spliced_pieces} pieces over 256 B "
+              f"spliced; stage times (host clock, s): safe_cut "
+              f"{st.safe_cut_s:.4f}, device {st.device_s:.4f}, drain "
+              f"{st.drain_s:.4f}; launches {json.dumps(n)}")
+        dead = [k for k, v in n.items() if not v and k != "piece_starts_rows"]
+        if (dev != "cpu" and dead) or st.host_advance_windows:
+            raise AssertionError(f"window {join}: kernels never launched "
+                                 f"{dead}, or a window overflowed")
+        if sorted(rows) != [16, 64, 256] or not all(rows.values()) or (
+                not st.spliced_pieces):
+            raise AssertionError(f"window {join}: a merge width got no row "
+                                 f"({rows}) or no oversize piece was "
+                                 "spliced")
+        if ids != want:
+            raise AssertionError(f"window {join}: ids differ from the host "
+                                 f"engine at id {first_diff(ids, want)}")
+    print("window miss_mode=device: both joins equal the host engine")
+    if dev != "cpu":
+        win = text.encode()[:ENGINE_WINDOW]
+        trim = eng._safe_cut_threshold(win)
+        data = torch.from_numpy(np.frombuffer(win, np.uint8).copy())[None]
+        data, nb = data.to(dev), torch.tensor([len(win)], dtype=torch.int32,
+                                              device=dev)
+        ms = {}
+        for miss, join in (("host", "probe"), ("device", "probe"),
+                           ("device", "sort")):
+            eng.miss_mode, eng.join_mode = miss, join
+            ms[f"{miss}/{join}"] = median_ms(
+                lambda: eng.window_pipeline(data, nb, trim), reps=5)
+        print("window pipeline, one 4 MB window (synchronized call, ms): "
+              + ", ".join(f"miss_mode/join_mode {k} {v:.4f}"
+                          for k, v in ms.items()))
+    return row, launches, window_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1895,10 +2164,13 @@ def main() -> int:
                                                    args.engine_mb, "cuda")
     row_entry, grid_errs, grid_times = check_grid_kernels(args.seed, "cuda")
     rows.append(row_entry)
+    merge_row, pieces, merge_windows = run_pieces(args.seed, "cuda")
+    rows.append(merge_row)
     paths = dict(stream=stream, engine=engine, resident=resident,
                  batch=run_batch(args.seed, "cuda"),
                  corpus=run_corpus(args.seed, "cuda"),
-                 streaming=run_streaming(args.seed, "cuda"))
+                 streaming=run_streaming(args.seed, "cuda"),
+                 pieces=pieces, merge_windows=merge_windows)
     for r in rows:
         name = r["name"]
         by_path = {p: v.get(name, 0) for p, v in paths.items()}
@@ -1919,7 +2191,9 @@ def main() -> int:
             "library", "library_traces", "launches_per_call", "passes",
             "blocks_per_window", "ms_by_shape", "call_ms_by_shape",
             "plain_ms_by_shape", "bound_ms_by_shape", "library_ms_by_shape",
-            "launches_per_call_by_shape", "blocks_per_window_by_shape")
+            "launches_per_call_by_shape", "blocks_per_window_by_shape",
+            "merges_by_shape", "longest_row_merges_by_shape",
+            "latency_floor_ms", "l2_read_ns", "latency_floor_ms_by_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
 

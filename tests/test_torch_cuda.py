@@ -586,3 +586,97 @@ def test_threads_share_one_engine_on_the_card(dev):
         assert ids == [host.encode(t, set(specials))[0] for t in job]
     st = tok._get_device().stats
     assert st.grids >= 12 and st.windows >= 2
+
+
+def _merge_tables(dev):
+    from tokendagger_tpu_torch.convert import merge_tables_from_ranks
+    from torch_port_util import merge_vocab
+
+    return merge_tables_from_ranks(merge_vocab()[0], device=dev)
+
+
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("C", [16, 64, 256])
+def test_merge_kernel_equals_plain(dev, C, lut):
+    """The merge kernel against the plain loop on random and edge rows
+    (lengths 0, 1 and C, equal-byte runs, unranked pairs)."""
+    from tokendagger_tpu_torch.ops import merge as M
+    from torch_port_util import merge_rows_np
+
+    mt = _merge_tables(dev)
+    buf, lens = merge_rows_np(np.random.default_rng(C), 700, C)
+    by, ln = torch.from_numpy(buf).to(dev), torch.from_numpy(lens).to(dev)
+    lut_t = mt.pair_lut if lut else None
+    before = M.merge_rows.launches
+    tok, cnt = M.merge_rows(by, ln, mt.byte_rank, mt.pair_rows, mt.pair_mask,
+                            lut_t)
+    torch.cuda.synchronize()
+    assert M.merge_rows.launches == before + 1
+    want = M.merge_rows_local(by, ln, mt.byte_rank, mt.pair_rows,
+                              mask=mt.pair_mask, pair_lut=lut_t)
+    assert torch.equal(tok, want[0]) and torch.equal(cnt, want[1])
+    assert int((cnt.cpu() < torch.from_numpy(lens)).sum()) > 100  # merged
+
+
+def test_resolve_window_card_equals_cpu(dev):
+    """resolve_window on the card (K2+K3, K4 and the merge kernel) equals
+    its CPU run, both miss modes and both joins."""
+    from tokendagger_tpu_torch.convert import merge_tables_from_ranks
+    from tokendagger_tpu_torch.ops.fused import caps_for, resolve_window
+    from tokendagger_tpu_torch.tables import build_vhash8
+    from torch_port_util import fused_window
+
+    ranks, _, starts, boc, data, nbytes, trim = fused_window(3)
+    N = data.shape[0]
+    vh, vmask, _ = build_vhash8(ranks)
+    out = {}
+    for d in ("cpu", dev):
+        mt = merge_tables_from_ranks(ranks, device=d)
+        args = [torch.from_numpy(x)[None].to(d) for x in (starts, boc, data)]
+        args += [torch.tensor([v], dtype=torch.int32, device=d)
+                 for v in (nbytes, trim)]
+        for miss in ("host", "device"):
+            for join in ("probe", "sort"):
+                out[d, miss, join] = resolve_window(
+                    *args, mt.byte_rank, mt.pair_rows, mt.pair_lut, mt.vk,
+                    mt.vlen, mt.vrank, torch.as_tensor(vh, device=d),
+                    mask=mt.pair_mask, vhash_mask=vmask, join_mode=join,
+                    miss_mode=miss, **caps_for(N))
+    for (d, miss, join), got in out.items():
+        if d == "cpu":
+            continue
+        for g, w in zip(got, out["cpu", miss, join]):
+            assert torch.equal(g.cpu(), w), (miss, join)
+    assert int(out["cpu", "device", "probe"][8]) == 1   # the 300-byte piece
+
+
+def test_cuda_tensors_never_reach_the_plain_merge(dev, monkeypatch):
+    """merge_rows, resolve_window and the piece path on CUDA tensors run
+    the kernel: the plain loop raises if reached."""
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, DeviceEngine, HostEngine
+    from tokendagger_tpu_torch.ops import merge as M
+    from torch_port_util import merge_rows_np, merge_vocab
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain merge")
+
+    monkeypatch.setattr(M, "merge_rows_local", refuse)
+    monkeypatch.setattr(M, "merge_rows_from_state", refuse)
+    mt = _merge_tables(dev)
+    buf, lens = merge_rows_np(np.random.default_rng(1), 64, 64)
+    M.merge_rows(torch.from_numpy(buf).to(dev),
+                 torch.from_numpy(lens).to(dev), mt.byte_rank, mt.pair_rows,
+                 mt.pair_mask)
+    with pytest.raises(AssertionError, match="plain merge"):
+        M.merge_rows(torch.from_numpy(buf), torch.from_numpy(lens),
+                     mt.byte_rank.cpu(), mt.pair_rows.cpu(), mt.pair_mask)
+    ranks, specials = merge_vocab()
+    text = multiscript_text(np.random.default_rng(2), 12000)
+    want = HostEngine(LLAMA4_PATTERN, ranks, specials).encode_ordinary(text)
+    for stream, miss in ((False, "host"), (True, "device")):
+        eng = DeviceEngine(LLAMA4_PATTERN, ranks, specials, device=dev,
+                           stream=stream, vocab_fastpath=False)
+        eng.miss_mode = miss
+        before = M.merge_rows.launches
+        assert eng.encode_ordinary_batch([text])[0] == want
+        assert M.merge_rows.launches > before

@@ -158,13 +158,102 @@ def test_other_profiles_equal_host(pattern):
         text)
 
 
-def test_piece_path_not_ported():
+# the cases of the JAX package's tests/test_device_engine.py TestMergeKernel
+PIECES = [b"hello", b"the", b"and", b"x", b"", b"hellohello",
+          b"abcdefghijklmnop", b"a" * 16, b"a" * 63, b"!" * 10,
+          bytes(range(256))[:64], b" there", b"is", b"ing", b"anding",
+          b"x" * 300, b"-" * 1000, b"a" * 256, b"a" * 257]
+
+
+@pytest.mark.parametrize("fastpath", [True, False])
+def test_encode_pieces_equals_jax(fastpath):
+    """encode_pieces with and without the whole-piece fast path equals
+    the JAX DeviceEngine's and byte_pair_encode, random pieces included."""
+    from tokendagger_tpu_torch import byte_pair_encode
+
     ranks, specials = make_tiny_vocab()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        DeviceEngine(r"\w+|\s+", ranks, specials, device="cpu")
-    del ranks[b"\x00"]
-    with pytest.raises(NotImplementedError, match="single-byte"):
-        DeviceEngine(LLAMA4_PATTERN, ranks, specials, device="cpu")
+    rng = np.random.default_rng(42)
+    pieces = PIECES + [bytes(rng.integers(0, 256, int(k)).astype(np.uint8))
+                       for k in rng.integers(1, 40, 100)]
+    port = DeviceEngine(LLAMA4_PATTERN, ranks, specials, device="cpu",
+                        vocab_fastpath=fastpath)
+    jax_eng = JaxEngine(LLAMA4_PATTERN, ranks, specials,
+                        vocab_fastpath=fastpath)
+    got = port.encode_pieces(pieces)
+    assert got == jax_eng.encode_pieces(pieces)
+    assert got == [byte_pair_encode(p, ranks) if p else [] for p in pieces]
+    st = port.stats
+    assert st.piece_host_merges == 3           # the three over 256 bytes
+    assert set(st.merge_rows_by_width) == {16, 64, 256}
+    if not fastpath:                           # vocab tokens merge too
+        assert st.piece_hits > 0
+
+
+def _piece_tokenizers():
+    """Tokenizers the stream path cannot serve: a pattern outside the four
+    profiles, and a vocabulary without b"\\xff"; and a profile engine
+    forced onto the piece path."""
+    ranks, specials = make_tiny_vocab()
+    no_ff = {b: r for b, r in ranks.items() if b != b"\xff"}
+    return {"pattern": (r"\w+|\s+|[^\w\s]+", ranks, specials, None),
+            "byte_rank": (LLAMA4_PATTERN, no_ff, specials, None),
+            "stream_false": (LLAMA4_PATTERN, ranks, specials, False)}
+
+
+@pytest.mark.parametrize("kind", ["pattern", "byte_rank", "stream_false"])
+def test_piece_path_equals_host_and_tiktoken(kind):
+    import tiktoken
+
+    pat, ranks, specials, stream = _piece_tokenizers()[kind]
+    port = DeviceEngine(pat, ranks, specials, device="cpu", stream=stream)
+    assert port.stream is False
+    host = HostEngine(pat, ranks, specials)
+    tk = tiktoken.Encoding("t", pat_str=pat, mergeable_ranks=ranks,
+                           special_tokens=specials)
+    rng = np.random.default_rng(8)
+    texts = [multiscript_text(rng, 20000) + "<|bos|>" + prose_text(rng, 9000),
+             "", "hello <|eos|>", prose_text(rng, 300)]
+    allowed = set(specials)
+    got = port.encode_batch(texts, allowed)
+    assert got == [host.encode(t, allowed)[0] for t in texts]
+    assert got == [tk.encode(t, allowed_special="all") for t in texts]
+    assert port.encode_ordinary_batch(texts[:1]) == [
+        tk.encode_ordinary(texts[0])]
+    assert sum(port.stats.merge_rows_by_width.values()) > 0
+    with pytest.raises(ValueError, match="piece path"):
+        port.encode_stream(b"hello")
+
+
+def test_stream_needs_a_profile():
+    ranks, specials = make_tiny_vocab()
+    with pytest.raises(ValueError, match="profiles"):
+        DeviceEngine(r"\w+|\s+", ranks, specials, device="cpu", stream=True)
+    eng = DeviceEngine(LLAMA4_PATTERN, ranks, specials, device="cpu")
+    assert eng.stream and eng._merge is None   # merge tables: on first use
+
+
+@pytest.mark.parametrize("join", ["probe", "sort"])
+@pytest.mark.parametrize("miss", ["host", "device"])
+def test_window_modes_equal_host(miss, join):
+    """The stream path under each miss_mode and join_mode (resolve_window
+    where either is not the default) gives the host engine's ids, windows
+    cut at safe offsets; "device" splices only pieces over 256 bytes."""
+    from torch_port_util import merge_vocab
+
+    ranks, specials = merge_vocab()
+    port = DeviceEngine(LLAMA4_PATTERN, ranks, specials, device="cpu")
+    host = HostEngine(LLAMA4_PATTERN, ranks, specials)
+    port.miss_mode, port.join_mode = miss, join
+    rng = np.random.default_rng(9)
+    text = (prose_text(rng, 60000) + multiscript_text(rng, 3000) + " "
+            + "q" * 300 + " " + prose_text(rng, 70000))
+    assert port.encode_stream(text.encode()).tolist() == (
+        host.encode_ordinary(text))
+    assert port.stats.cut_windows >= 1
+    assert port.stats.host_advance_windows == 0
+    if miss == "device":
+        assert port.stats.spliced_pieces == 1          # the 301-byte piece
+        assert port._merge is not None
 
 
 def test_default_device_is_the_card():

@@ -109,14 +109,25 @@ def test_fused_ascii_pipeline_matches_host():
     (dict(batch=1), "item 12"),
     (dict(batch=2, impl="sort"), "item 12"),
     (dict(batch=2, impl="ascii-sort"), "item 12"),
-    (dict(batch=2, miss_mode="device"), "item 13"),
-    (dict(batch=2, join_mode="sort"), "item 13"),
 ])
 def test_left_out_combinations_raise(corpus, kw, item):
     ranks, specials = make_tiny_vocab()
     with pytest.raises(NotImplementedError, match=item):
         run_resident(ranks, specials, LLAMA4_PATTERN, corpus, window=W,
                      n_windows=2, device="cpu", **kw)
+
+
+def test_device_miss_mode_and_sort_join_as_the_reference(corpus):
+    """The reference's batched mode refuses miss_mode="device" with a
+    ValueError, and its batched pipelines do not read join_mode."""
+    ranks, specials = make_tiny_vocab()
+    with pytest.raises(ValueError, match="requires miss_mode='host'"):
+        run_resident(ranks, specials, LLAMA4_PATTERN, corpus, window=W,
+                     n_windows=2, batch=2, miss_mode="device", device="cpu")
+    r = run_resident(ranks, specials, LLAMA4_PATTERN, corpus, window=W,
+                     n_windows=2, batch=2, reps=1, join_mode="sort",
+                     overlap_trial=False, device="cpu")
+    assert r.match_host and r.impl == "general"
 
 
 def test_more_than_one_trial_raises(corpus):

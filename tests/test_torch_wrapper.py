@@ -181,16 +181,24 @@ def test_default_backend_needs_the_card():
 
 
 def test_unknown_pattern_raises_on_device():
+    """A pattern outside the profiles encodes on the device's piece path;
+    only its stream path, asked for explicitly, raises."""
+    from tokendagger_tpu_torch import DeviceEngine
+
     ranks, specials = make_tiny_vocab()
     tok = Tokenizer("t", pat_str=r"\w+|\s+", mergeable_ranks=ranks,
                     special_tokens=specials, device="cpu")
-    with pytest.raises(TokenDaggerError, match="not ported"):
-        tok.encode_ordinary("hello")
+    assert tok.encode_ordinary("hello  world") == tok._host.encode_ordinary(
+        "hello  world")
+    assert tok._device.stream is False
+    with pytest.raises(ValueError, match="profiles"):
+        DeviceEngine(r"\w+|\s+", ranks, specials, device="cpu", stream=True)
 
 
 def _outside_profiles(kind):
-    """A tokenizer the device window pipeline cannot serve: a pattern
-    outside the four profiles, or a vocabulary lacking a byte rank."""
+    """A tokenizer the device window pipeline cannot serve (the engine's
+    piece path serves it): a pattern outside the four profiles, or a
+    vocabulary lacking a byte rank."""
     ranks, specials = make_tiny_vocab()
     if kind == "pattern":
         return r"\w+|\s+|[^\w\s]+", ranks, specials
@@ -209,8 +217,30 @@ def test_auto_encodes_outside_profiles_on_host(kind):
     assert auto.encode_ordinary(text) == want
     assert auto.encode_batch([text, "hi"]) == [
         want, auto._host.encode_ordinary("hi")]
-    with pytest.raises(TokenDaggerError, match="not ported"):
-        Tokenizer("t", backend="device", **kw).encode_ordinary(text)
+    device = Tokenizer("t", backend="device", **kw)
+    assert device.encode_ordinary(text) == want
+    assert device._device.stream is False
+
+
+@pytest.mark.parametrize("kind", ["pattern", "byte_rank"])
+def test_device_outside_profiles_equals_tiktoken(kind):
+    """encode and encode_batch with specials on the device's piece path
+    equal the host engine and tiktoken."""
+    pat, ranks, specials = _outside_profiles(kind)
+    tok = Tokenizer("t", pat_str=pat, mergeable_ranks=ranks,
+                    special_tokens=specials, backend="device", device="cpu")
+    tk = tiktoken.Encoding("t", pat_str=pat, mergeable_ranks=ranks,
+                           special_tokens=specials)
+    rng = np.random.default_rng(13)
+    texts = [multiscript_text(rng, 5000) + "<|bos|>" + prose_text(rng, 5000),
+             *INLINE]
+    for t in texts[:3]:
+        assert tok.encode(t, allowed_special="all") == tk.encode(
+            t, allowed_special="all")
+    assert tok.encode_batch(texts, allowed_special="all") == [
+        tk.encode(t, allowed_special="all") for t in texts]
+    assert tok.encode_batch(texts, allowed_special="all") == [
+        tok._host.encode(t, set(specials))[0] for t in texts]
 
 
 @pytest.mark.parametrize("kind", ["pattern", "byte_rank"])

@@ -140,3 +140,93 @@ def invalid_utf8(rng: np.random.Generator, n: int) -> bytes:
         out[int(i)] = int(rng.choice([0x80, 0xBF, 0xC3, 0xE2, 0xF0, 0xF5,
                                       0xF8, 0xFE, 0xFF]))
     return bytes(out) + b"\xf0\x9f\x99"
+
+
+def merge_vocab():
+    """``make_tiny_vocab`` plus the pieces (with every prefix) of seeded
+    prose and runs of equal bytes ("aa", "aaaa", ...), so that rows merge
+    far and ties between equal pairs occur: (ranks, specials)."""
+    from conftest import make_tiny_vocab
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine
+
+    ranks, specials = make_tiny_vocab()
+    for k in (2, 3, 4, 8, 16, 32):
+        for c in (b"a", b" ", b"-"):
+            ranks.setdefault(c * k, len(ranks))
+    text = prose_text(np.random.default_rng(77), 20000)
+    host = HostEngine(LLAMA4_PATTERN, {bytes([i]): i for i in range(256)}, {})
+    for a, b in host.split_spans(text):
+        p = text[a:b].encode()
+        for k in range(2, len(p) + 1):
+            ranks.setdefault(p[:k], len(ranks))
+    return ranks, specials
+
+
+def merge_rows_np(rng: np.random.Generator, R: int, C: int):
+    """(R, C) uint8 merge rows and their (R,) int32 lengths: edge rows
+    first (lengths 0, 1 and C; equal-byte runs, whose equal pairs tie;
+    bytes >= 0x80, whose pairs have no rank; random bytes of every value),
+    then random printable ASCII and prose rows of random lengths, with
+    garbage bytes past each length."""
+    buf = rng.integers(0, 256, (R, C)).astype(np.uint8)
+    lens = np.zeros(R, np.int32)
+    edge = [b"", b"t", b"a" * C, b" " * C, b"-" * C,
+            bytes(rng.integers(0x80, 0x100, C).astype(np.uint8)),
+            bytes(rng.integers(0, 0x100, C).astype(np.uint8)),
+            (b"hello " * C)[:C], (b"a" * (C - 1) + b"b")]
+    prose = prose_text(rng, 8 * R * C).encode()
+    rows = []
+    for r in range(R):
+        if r < len(edge):
+            rows.append(edge[r])
+            continue
+        k = int(rng.integers(1, C + 1))
+        if r % 2:
+            rows.append(bytes(rng.integers(32, 127, k).astype(np.uint8)))
+        else:
+            at = int(rng.integers(0, len(prose) - k))
+            rows.append(prose[at:at + k])
+    for r, row in enumerate(rows):
+        buf[r, : len(row)] = np.frombuffer(row, np.uint8)
+        lens[r] = len(row)
+    return buf, lens
+
+
+def fused_window(seed: int, n: int = 1 << 16):
+    """One window of ``n`` bytes for ``resolve_window``: seeded prose whose
+    pieces are in the vocabulary, seeded rare lowercase identifiers of
+    2-255 bytes (misses in every bucket width) and one of 300 bytes (an
+    oversize piece), then multi-script text. Returns (ranks, specials,
+    starts_char (n,) bool, byte_of_char (n,) int32, data (n,) uint8,
+    nbytes, trim) with the trim 3,000 bytes inside the text."""
+    from conftest import make_tiny_vocab
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine
+
+    rng = np.random.default_rng(seed)
+    ranks, specials = make_tiny_vocab()
+    base = prose_text(rng, n // 2)
+    plain = HostEngine(LLAMA4_PATTERN, {bytes([i]): i for i in range(256)},
+                       {})
+    for a, b in plain.split_spans(base):
+        p = base[a:b].encode()
+        for k in range(2, len(p) + 1):
+            ranks.setdefault(p[:k], len(ranks))
+    parts = [base]
+    for k in (3, 5, 9, 12, 15, 20, 30, 40, 63, 70, 100, 200, 255, 300):
+        parts.append(" " + "".join(chr(c) for c in rng.integers(97, 123, k)))
+        parts.append(prose_text(rng, 500))
+    parts.append(multiscript_text(rng, n // 4))
+    raw = "".join(parts).encode()[: n - 100]
+    text = raw.decode("utf-8", "ignore")
+    raw = text.encode()
+    host = HostEngine(LLAMA4_PATTERN, ranks, specials)
+    starts = np.zeros(n, bool)
+    for a, _ in host.split_spans(text):
+        starts[a] = True
+    boc = np.full(n, len(raw), np.int32)
+    lens = np.fromiter((len(ch.encode()) for ch in text), np.int64,
+                       len(text))
+    boc[: len(text)] = np.cumsum(lens) - lens
+    data = np.zeros(n, np.uint8)
+    data[: len(raw)] = np.frombuffer(raw, np.uint8)
+    return ranks, specials, starts, boc, data, len(raw), len(raw) - 3000

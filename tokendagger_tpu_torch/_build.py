@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("_build")
-CUDA_SOURCES = ("piece_starts", "compact", "utf8", "route")
+CUDA_SOURCES = ("piece_starts", "compact", "utf8", "route", "merge")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -5,8 +5,13 @@ state.
 ``vhash8`` whole-piece table. ``EngineTables`` is what ``DeviceEngine``
 and ``Tokenizer`` keep: the same table plus the rank -> bytes decode
 tables, which ``decode_tables_from_ranks`` also builds alone.
-``tables_from_reference`` and ``engine_tables_from_reference`` take the
-JAX package's arrays as numpy (the fields of
+``MergeTables`` is what the device BPE merge reads (``ops/merge.py``,
+``ops/fused.resolve_window``): the byte ranks, the pair-merge hash table,
+the byte-pair ranks and the whole-piece join keys of ``ops/join.vocab_join``;
+``DeviceEngine`` builds it at its first piece-path call or first window
+that needs it.
+``tables_from_reference`` and ``engine_tables_from_reference`` (and
+``merge_tables_from_reference``) take the JAX package's arrays as numpy (the fields of
 ``tables.build_tables(...)``, and ``unicode_tables.get_tables()``) and
 return them as the port's tensors. The class table must be the one this
 package ships (``data/unicode_classes.npz``): its kernels classify bytes
@@ -123,3 +128,60 @@ def tables_from_reference(vhash8_rows: np.ndarray, vhash8_mask: int,
     rows = _rows(vhash8_rows, vhash8_mask)
     return StreamTables(torch.as_tensor(rows, device=device),
                         int(vhash8_mask))
+
+
+@dataclass
+class MergeTables:
+    byte_rank: torch.Tensor   # (256,) int32, -1 for a byte without a rank
+    pair_rows: torch.Tensor   # (nb, 12) int32 pair-merge hash rows
+    pair_mask: int            # nb - 1
+    pair_lut: torch.Tensor    # (256, 256) int32 2-byte token ranks, MAX
+    vk: torch.Tensor          # (V, 4) int32 key words (uint32 bits)
+    vlen: torch.Tensor        # (V,) int32 token byte lengths
+    vrank: torch.Tensor       # (V,) int32 token ranks
+
+
+def merge_tables_from_ranks(ranks: dict[bytes, int], *,
+                            device: str | torch.device) -> MergeTables:
+    """``MergeTables`` of a mergeable-ranks dict on ``device``."""
+    from .tables import build_pair_table, byte_rank, pair_lut, vocab_keys
+
+    pair = build_pair_table(ranks)
+    vk, vlen, vrank = vocab_keys(ranks)
+    return merge_tables_from_reference(
+        byte_rank(ranks), pair.rows, pair.mask, pair_lut(ranks), vk, vlen,
+        vrank, device=device)
+
+
+def merge_tables_from_reference(byte_rank: np.ndarray, pair_rows: np.ndarray,
+                                pair_mask: int, pair_lut: np.ndarray,
+                                vocab_keys: np.ndarray, vocab_lens: np.ndarray,
+                                vocab_ranks: np.ndarray, *,
+                                device: str | torch.device) -> MergeTables:
+    """The JAX package's ``build_tables`` fields (``byte_rank``,
+    ``pair.rows``, ``pair.mask``, ``pair_lut``, ``vocab_keys``,
+    ``vocab_lens``, ``vocab_ranks``; numpy) as the port's ``MergeTables``
+    on ``device``."""
+    br = np.ascontiguousarray(byte_rank, dtype=np.int32)
+    rows = np.ascontiguousarray(pair_rows, dtype=np.int32)
+    lut = np.ascontiguousarray(pair_lut, dtype=np.int32)
+    vk = np.ascontiguousarray(vocab_keys).view(np.int32)
+    vlen = np.ascontiguousarray(vocab_lens, dtype=np.int32)
+    vrank = np.ascontiguousarray(vocab_ranks, dtype=np.int32)
+    if br.shape != (256,) or lut.shape != (256, 256):
+        raise ValueError("byte_rank must be (256,) and pair_lut (256, 256)")
+    if rows.ndim != 2 or rows.shape[1] != 12:
+        raise ValueError("pair_rows must be (nb, 12)")
+    if int(pair_mask) != rows.shape[0] - 1 or rows.shape[0] & int(pair_mask):
+        raise ValueError("pair_mask must be the bucket count (a power of "
+                         "two) minus one")
+    V = vlen.shape[0]
+    if vk.shape != (V, 4) or vrank.shape != (V,):
+        raise ValueError("vocab_keys must be (V, 4) 32-bit words beside "
+                         "(V,) lengths and ranks")
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return MergeTables(t(br), t(rows), int(pair_mask), t(lut), t(vk),
+                       t(vlen), t(vrank))

@@ -1,8 +1,13 @@
-"""Device tokenization engine: safe-cut windows over any UTF-8 text.
+"""Device tokenization engine: safe-cut windows over any UTF-8 text, and
+the piece path for any tokenizer.
 
-``DeviceEngine`` ordinary-encodes byte segments of any length through
-fixed-shape windows (the stream path of the JAX package's
-``engine.DeviceEngine``). Per window, on the device:
+``DeviceEngine`` serves every tokenizer, as the JAX package's
+``engine.DeviceEngine`` does. With a pattern of one of the four profiles
+and a rank for every single byte it takes the *stream path*
+(``stream=True``, the default then); otherwise the *piece path*.
+
+Stream path: byte segments of any length go through fixed-shape windows.
+Per window, on the device:
 
 1. UTF-8 decode to codepoints: ``ops/pretokenize.utf8_decode`` (kernel K9,
    then K4 for the compaction);
@@ -14,6 +19,17 @@ fixed-shape windows (the stream path of the JAX package's
 
 One small device-to-host copy then reads the overflow flag, the id count,
 the miss count and the consumed bytes; the ids and miss spans follow.
+With ``miss_mode="device"`` or ``join_mode="sort"`` stages 3-5 are
+``ops/fused.resolve_window`` instead: the whole-piece lookup is the probe
+or the sort join (``ops/join.vocab_join``), and under "device" the misses
+of at most 256 bytes are BPE-merged on the card (``ops/merge.merge_rows``)
+so that only longer pieces reach the host.
+
+Piece path: the host splits the text (``HostEngine.split_spans``); each
+unique piece takes its whole-piece rank if it has one, a piece over 256
+bytes or with a byte without a rank takes ``byte_pair_merge`` on the
+host, and the rest are packed into rows of width 16, 64 or 256 and merged
+on the device (``merge_rows``), ``MERGE_ROWS`` rows a launch.
 
 ``encode_streams`` packs four or more short complete segments (at most
 4,096 B) into (rows, width) grids, resolved many per launch by
@@ -21,9 +37,12 @@ the miss count and the consumed bytes; the ids and miss spans follow.
 window path. Both give the same ids, so routing is a batching choice.
 
 Several threads may encode through one engine (``corpus.CorpusProcessor``
-runs a thread pool): one lock holds each window's and each grid's device
-section (staging, the stage launches and the reads back) to one thread at
-a time, and every update of ``stats`` goes through ``_tally`` under it.
+runs a thread pool): one lock holds each window's, each grid's and each
+merge batch's device section (staging, the stage launches and the reads
+back) to one thread at a time, and every update of ``stats`` goes through
+``_tally`` under it. The merge tables are built under it too, at the
+first call that needs them, so that a stream engine's construction costs
+nothing more.
 Miss splicing and the other host work run outside it.
 
 A window is cut at a *safe* offset (``_safe_cut_threshold``): pieces that
@@ -46,13 +65,17 @@ from typing import AbstractSet, Iterator
 import numpy as np
 import torch
 
-from .convert import EngineTables, engine_tables_from_ranks
+from .convert import (
+    EngineTables, MergeTables, engine_tables_from_ranks,
+    merge_tables_from_ranks,
+)
 from .hostengine import HostEngine, byte_pair_merge
 from .ops.batched import ROW_WIDTHS, grid_rows, resolve_grid
 from .ops.bitplane import piece_starts_chars
 from .ops.compact import compact_piece_keys
-from .ops.fused import SENTINEL, caps_for, finalize_host
+from .ops.fused import SENTINEL, caps_for, finalize_host, resolve_window
 from .ops.join import vocab_probe8
+from .ops.merge import merge_rows
 from .ops.pretokenize import starts_to_bytes, utf8_decode
 from .streaming import _safe_cut_chars, coarse_classes
 from .vocab import classify_pattern
@@ -72,18 +95,11 @@ CUT_SLACK = 16
 CARD_WINDOW = SCAN_SIZES[3]
 CPU_WINDOW = SCAN_SIZES[1]
 
-
-def unsupported_reason(pattern: str,
-                       mergeable_ranks: dict[bytes, int]) -> str | None:
-    """Why ``DeviceEngine`` cannot serve a tokenizer, or None when it can:
-    its window pipeline needs one of the four pattern profiles and a rank
-    for every single byte. A static property of the tokenizer."""
-    if classify_pattern(pattern) is None:
-        return "the pattern is not one of the four supported profiles"
-    missing = sum(bytes([b]) not in mergeable_ranks for b in range(256))
-    if missing:
-        return f"the vocabulary lacks {missing} single-byte ranks"
-    return None
+# Piece path: row widths of the merge batches (a longer piece merges on
+# the host) and the most rows of one merge launch. Batches are not padded
+# to a power of two: that padding served XLA's compile cache.
+BUCKET_WIDTHS = (16, 64, 256)
+MERGE_ROWS = 1 << 13
 
 
 @dataclass
@@ -103,6 +119,12 @@ class EngineStats:
     drain_s: float = 0.0           # id copy-back + miss splice
     host_s: float = 0.0            # _host_advance
     grid_s: float = 0.0            # staging + grid stages + reads + splice
+    # device merge rows by width (piece path, miss_mode="device" windows)
+    merge_rows_by_width: dict[int, int] = field(default_factory=dict)
+    # piece path: unique pieces by route, and the merge batches' time
+    piece_hits: int = 0            # whole-piece ranks
+    piece_host_merges: int = 0     # > 256 bytes or a byte without a rank
+    merge_s: float = 0.0           # staging + merge launches + reads
 
     @property
     def grids(self) -> int:
@@ -110,12 +132,19 @@ class EngineStats:
 
 
 class DeviceEngine:
-    """Windowed device encoder for the four supported pattern profiles.
+    """Device encoder for any tokenizer (see the module doc).
 
     ``device`` holds the tables and runs the stages (CPU tensors run every
     kernel's plain version); ``tables`` are prebuilt ``EngineTables`` on
-    it. Windows start at 4 MB on a card (growing to ``MAX_WINDOW``) and
-    are 64 KB on the CPU."""
+    it. ``stream`` picks the path; None takes the stream path when the
+    pattern is one of the four profiles and every single byte has a rank
+    (the JAX package's rule). ``vocab_fastpath=False`` sends every
+    multi-byte piece of the piece path through the device merge, whole
+    vocab tokens included; their ids still come from the whole-piece rank,
+    as the host engine's do. The attributes ``miss_mode`` ("host" or
+    "device") and ``join_mode`` ("probe" or "sort") choose the stream
+    path's window stages. Windows start at 4 MB on a card (growing to
+    ``MAX_WINDOW``) and are 64 KB on the CPU."""
 
     def __init__(
         self,
@@ -125,20 +154,30 @@ class DeviceEngine:
         *,
         device: str | torch.device = "cuda",
         tables: EngineTables | None = None,
+        stream: bool | None = None,
+        vocab_fastpath: bool = True,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        why = unsupported_reason(pattern, mergeable_ranks)
-        if why is not None:
-            raise NotImplementedError(
-                f"DeviceEngine: {why}; the device piece path for such "
-                "inputs is not ported yet (ROADMAP.md queue 1, item 13)")
         self._profile = classify_pattern(pattern)
         self.host = HostEngine(pattern, mergeable_ranks, special_tokens)
         self.ranks = self.host.ranks
+        self._byte_rank = np.asarray(
+            [self.ranks.get(bytes([b]), -1) for b in range(256)], np.int32)
+        self._missing_bytes = bool((self._byte_rank < 0).any())
+        if stream is None:
+            stream = self._profile is not None and not self._missing_bytes
+        if stream and self._profile is None:
+            raise ValueError("the stream path needs a pattern of one of the "
+                             "four profiles; use stream=False")
+        self.stream = bool(stream)
+        self.vocab_fastpath = vocab_fastpath
+        self.miss_mode = "host"
+        self.join_mode = "probe"
+        self._merge: MergeTables | None = None
         if tables is None:
             tables = engine_tables_from_ranks(
                 self.ranks, special_tokens, device=self.device)
@@ -147,7 +186,7 @@ class DeviceEngine:
         self._window = CPU_WINDOW if cpu else CARD_WINDOW
         self._max_window = CPU_WINDOW if cpu else MAX_WINDOW
         self.stats = EngineStats()
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
 
     def _tally(self, **deltas) -> None:
         """Add ``deltas`` to the fields of ``stats``, under the lock; a
@@ -161,9 +200,23 @@ class DeviceEngine:
                 else:
                     setattr(self.stats, k, getattr(self.stats, k) + v)
 
+    def merge_tables(self) -> MergeTables:
+        """The device merge's tables, built on first use under the lock."""
+        with self._lock:
+            if self._merge is None:
+                self._merge = merge_tables_from_ranks(self.ranks,
+                                                      device=self.device)
+            return self._merge
+
     # ==================================================================
     # Stream path (fixed-shape windowed scanning)
     # ==================================================================
+    def _need_stream(self) -> None:
+        if not self.stream:
+            raise ValueError("this engine takes the piece path (stream="
+                             "False): encode texts with encode_batch or "
+                             "encode_ordinary_batch")
+
     def _safe_cut_threshold(self, window: bytes) -> int:
         """Largest byte offset rs such that every piece ending <= rs is
         unaffected by bytes beyond the window: rs = start of the
@@ -237,14 +290,27 @@ class DeviceEngine:
             return np.asarray(ids, dtype=np.int64), len(prefix.encode("utf-8"))
 
     def window_pipeline(self, data: torch.Tensor, nbytes: torch.Tensor,
-                        trim: int):
+                        trim: int, rows_out: dict | None = None):
         """The device stages on one staged window: (1, N) uint8 and (1,)
         int32 length on the engine's device. Returns ``finalize_host``'s
-        9-tuple."""
+        9-tuple, or ``resolve_window``'s under a non-default ``miss_mode``
+        or ``join_mode`` (which fills ``rows_out`` with its merge rows by
+        width)."""
         N = data.shape[1]
         p_cap = caps_for(N)["p_cap"]
-        cp, cob, _boc, m = utf8_decode(data, nbytes)
+        cp, cob, boc, m = utf8_decode(data, nbytes)
         starts = piece_starts_chars(cp, m, profile=self._profile)
+        if self.miss_mode != "host" or self.join_mode != "probe":
+            if self.miss_mode == "device" and self._missing_bytes:
+                raise ValueError("miss_mode='device' needs a rank for every "
+                                 "single byte")
+            mt = self.merge_tables()
+            return resolve_window(
+                starts, boc, data, nbytes, trim, mt.byte_rank, mt.pair_rows,
+                mt.pair_lut, mt.vk, mt.vlen, mt.vrank,
+                self.tables.vhash8_rows, mask=mt.pair_mask,
+                vhash_mask=self.tables.vhash8_mask, join_mode=self.join_mode,
+                miss_mode=self.miss_mode, rows_out=rows_out, **caps_for(N))
         stb = starts_to_bytes(starts, cob, data, nbytes)
         sb, pl, k0, k1, k2, k3, npc = compact_piece_keys(stb, data, nbytes,
                                                          p_cap)
@@ -263,11 +329,13 @@ class DeviceEngine:
             buf[0, :n] = np.frombuffer(window, dtype=np.uint8)
             data = torch.from_numpy(buf).to(self.device)
             nb = torch.tensor([n], dtype=torch.int32, device=self.device)
+            rows: dict = {}
             (flat, total, _np, _nk, consumed, overflow, ms_s, ms_l,
-             n_ms) = self.window_pipeline(data, nb, trim)
+             n_ms) = self.window_pipeline(data, nb, trim, rows)
             # the one synchronizing read of the window's scalars
-            ovf, total_i, n_ms_i, consumed_i = torch.stack(
-                [overflow.to(torch.int32), total, n_ms, consumed],
+            ovf, total_i, n_ms_i, consumed_i, *n_rows = torch.stack(
+                [overflow.to(torch.int32), total, n_ms, consumed]
+                + [rows[w].to(torch.int32) for w in sorted(rows)],
                 dim=1)[0].tolist()
             t2 = time.perf_counter()
             if not ovf:
@@ -280,7 +348,8 @@ class DeviceEngine:
         if n_ms_i:
             ids = self._splice_oversize(ids, window, os_s, os_l, n_ms_i)
         self._tally(windows=1, device_s=t2 - t, spliced_pieces=n_ms_i,
-                    drain_s=time.perf_counter() - t2)
+                    drain_s=time.perf_counter() - t2,
+                    merge_rows_by_width=dict(zip(sorted(rows), n_rows)))
         return ids, consumed_i
 
     def _splice_oversize(self, ids: np.ndarray, window: bytes,
@@ -313,6 +382,7 @@ class DeviceEngine:
     def encode_stream(self, data: bytes) -> np.ndarray:
         """Ordinary-encode one byte segment through the windowed device
         pipeline. Arbitrary length; all device calls use fixed shapes."""
+        self._need_stream()
         out: list[np.ndarray] = []
         base = 0
         n = len(data)
@@ -366,6 +436,7 @@ class DeviceEngine:
         segments of at most ``ROW_WIDTHS[-1]`` bytes, those go through
         (rows, width) grids (``_encode_small_batched``); every other
         segment takes ``encode_stream``."""
+        self._need_stream()
         out: list[np.ndarray | None] = [None] * len(segments)
         small: list[tuple[int, bytes]] = []
         for i, s in enumerate(segments):
@@ -418,23 +489,113 @@ class DeviceEngine:
                             grid_s=time.perf_counter() - t)
 
     # ==================================================================
+    # Piece path (host split, device merge; exact for any tokenizer)
+    # ==================================================================
+    def encode_pieces(self, pieces: list[bytes]) -> list[list[int]]:
+        """Encode pretoken byte strings exactly (the JAX
+        ``encode_pieces``): an empty piece gives [], a single byte (and,
+        with ``vocab_fastpath``, a whole vocab token) its rank; every
+        other piece is encoded once per unique value by
+        ``_merge_unique``."""
+        results: list[list[int] | None] = [None] * len(pieces)
+        todo: dict[bytes, list[int]] = {}  # piece -> its indices
+        for i, piece in enumerate(pieces):
+            if not piece:
+                results[i] = []
+                continue
+            if self.vocab_fastpath or len(piece) == 1:
+                r = self.ranks.get(piece)
+                if r is not None:
+                    results[i] = [r]
+                    continue
+            todo.setdefault(piece, []).append(i)
+        unique = list(todo)
+        for piece, ids in zip(unique, self._merge_unique(unique)):
+            for i in todo[piece]:
+                results[i] = ids
+        return results  # type: ignore[return-value]
+
+    def _merge_unique(self, pieces: list[bytes]) -> list[list[int]]:
+        """Ids of distinct pieces. A vocab token takes its rank first, as
+        the host engine's lookup does (also a token the merge would not
+        reach); a piece over 256 bytes, or holding a byte without a rank,
+        merges on the host; the rest merge on the device in rows of the
+        smallest of ``BUCKET_WIDTHS`` that holds them. Without
+        ``vocab_fastpath`` the vocab tokens merge on the device too, and
+        keep their rank."""
+        out: list[list[int] | None] = [None] * len(pieces)
+        by_width: dict[int, list[int]] = {w: [] for w in BUCKET_WIDTHS}
+        rankless = bytes(np.flatnonzero(self._byte_rank < 0).tolist())
+        n_hits = n_host = 0
+        for i, piece in enumerate(pieces):
+            r = self.ranks.get(piece)
+            mergeable = len(piece) <= BUCKET_WIDTHS[-1] and (
+                not rankless or len(piece.translate(None, rankless))
+                == len(piece))
+            if r is not None:
+                out[i] = [r]
+                n_hits += 1
+            elif not mergeable:
+                out[i] = byte_pair_merge(piece, self.ranks)
+                n_host += 1
+            if mergeable and (r is None or not self.vocab_fastpath):
+                w = next(w for w in BUCKET_WIDTHS if len(piece) <= w)
+                by_width[w].append(i)
+        self._tally(piece_hits=n_hits, piece_host_merges=n_host)
+        for w, idxs in by_width.items():
+            for lo in range(0, len(idxs), MERGE_ROWS):
+                chunk = idxs[lo : lo + MERGE_ROWS]
+                buf = np.zeros((len(chunk), w), dtype=np.uint8)
+                lens = np.zeros(len(chunk), dtype=np.int32)
+                for row, i in enumerate(chunk):
+                    p = pieces[i]
+                    buf[row, : len(p)] = np.frombuffer(p, dtype=np.uint8)
+                    lens[row] = len(p)
+                mt = self.merge_tables()
+                with self._lock:
+                    t = time.perf_counter()
+                    tok, _ = merge_rows(
+                        torch.from_numpy(buf).to(self.device),
+                        torch.from_numpy(lens).to(self.device),
+                        mt.byte_rank, mt.pair_rows, mt.pair_mask)
+                    tok = tok.cpu().numpy()
+                    self._tally(merge_rows_by_width={w: len(chunk)},
+                                merge_s=time.perf_counter() - t)
+                for row, i in enumerate(chunk):
+                    if out[i] is None:
+                        ids = tok[row]
+                        out[i] = ids[ids >= 0].tolist()
+        return out  # type: ignore[return-value]
+
+    # ==================================================================
     # Text-level encoding
     # ==================================================================
+    def _encode_segments(self, segments: list[str]) -> list[list[int]]:
+        """Ordinary-encode texts: the stream path, or on the piece path
+        every text's pieces in one ``encode_pieces`` call."""
+        if self.stream:
+            return [f.tolist() for f in self.encode_streams(
+                [s.encode("utf-8") for s in segments])]
+        pieces: list[bytes] = []
+        bounds = []
+        for s in segments:
+            lo = len(pieces)
+            pieces.extend(s[a:b].encode("utf-8")
+                          for a, b in self.host.split_spans(s))
+            bounds.append((lo, len(pieces)))
+        encoded = self.encode_pieces(pieces)
+        return [[i for ids in encoded[lo:hi] for i in ids]
+                for lo, hi in bounds]
+
     def encode_ordinary_batch(self, texts: list[str]) -> list[list[int]]:
-        flats = self.encode_streams([t.encode("utf-8") for t in texts])
-        return [f.tolist() for f in flats]
+        return self._encode_segments(list(texts))
 
     def encode_batch(
         self, texts: list[str], allowed_special: AbstractSet[str]
     ) -> list[list[int]]:
-        """Full encode semantics: special-token scan on the host, each
-        ordinary segment through the device stream path."""
-        return self._encode_batch_stream(texts, allowed_special)
-
-    def _encode_batch_stream(
-        self, texts: list[str], allowed_special: AbstractSet[str]
-    ) -> list[list[int]]:
-        segments: list[bytes] = []
+        """Full encode semantics: special-token scan on the host, every
+        text's ordinary segments encoded together on the device."""
+        segments: list[str] = []
         plans: list[list[tuple[str, int]]] = []
         for text in texts:
             plan: list[tuple[str, int]] = []
@@ -444,9 +605,9 @@ class DeviceEngine:
                     plan.append(("sp", special_id))
                 else:
                     plan.append(("seg", len(segments)))
-                    segments.append(seg_text.encode("utf-8"))
+                    segments.append(seg_text)
             plans.append(plan)
-        flats = self.encode_streams(segments)
+        encoded = self._encode_segments(segments)
         out = []
         for plan in plans:
             ids: list[int] = []
@@ -454,7 +615,7 @@ class DeviceEngine:
                 if kind == "sp":
                     ids.append(payload)
                 else:
-                    ids.extend(flats[payload].tolist())
+                    ids.extend(encoded[payload])
             out.append(ids)
         return out
 

@@ -11,6 +11,11 @@ This stage is plain torch on every device: the JAX package runs it as
 plain XLA too (``ops/join.vocab_probe8t_chunks``, whose 16/48/96-way
 chunking only worked around the TPU's gather scheduling).
 
+``vocab_join`` is the same lookup as a sort-merge join against the
+vocabulary's whole-piece keys (``join_mode="sort"``): the JAX package runs
+it as ``lax.sort`` plus an ``associative_scan``, with no Pallas kernel, so
+the port runs it with ``torch.sort``.
+
 ``vocab_probe_hot`` answers a host-chosen set of hot pieces by compare and
 probes only the rest, compacted to a dense prefix by kernel K5+K6 and put
 back by K7+K8 (``compact.compact_record`` / ``expand_route``).
@@ -180,3 +185,49 @@ def vocab_probe_hot(qk0, qk1, qk2, qk3, qlen, rows: torch.Tensor, mask: int,
     r_back = expand_route(r_u, route, unknown)
     rank = torch.where(hot, rhot, torch.where(unknown, r_back, -1))
     return torch.where(live, rank, -1).to(torch.int32), n_unknown > u_cap
+
+
+def _pack64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two int32-bit words as one int64 sort key; equal keys iff both
+    words are equal."""
+    return (hi.to(torch.int64) << 32) | u32(lo)
+
+
+def vocab_join(qk0, qk1, qk2, qk3, qlen, vk: torch.Tensor, vlen: torch.Tensor,
+               vrank: torch.Tensor) -> torch.Tensor:
+    """Rank of each query piece's exact (four key words, length) match
+    among the vocabulary's keys, -1 on a miss: the contract of the JAX
+    ``join.vocab_join``. Queries are int32 words (uint32 bits) and int32
+    lengths of any shape; ``vk`` (V, 4) int32 words, ``vlen``/``vrank``
+    (V,). The vocabulary's entries and the queries are sorted together
+    by stable sorts, vocabulary first, so each key run starts with its
+    vocab entry if there is one; a cummax of the last vocab position
+    fills each run, and the queries' ranks are put back in their order."""
+    shape = qk0.shape
+    dev = qk0.device
+    V = vlen.shape[0]
+    P = qk0.numel()
+    if V == 0:
+        return torch.full(shape, -1, dtype=torch.int32, device=dev)
+    words = [torch.cat([vk[:, j], q.reshape(-1).to(torch.int32)])
+             for j, q in enumerate((qk0, qk1, qk2, qk3))]
+    kl = torch.cat([vlen, qlen.reshape(-1)]).to(torch.int64)
+    keys = (kl, _pack64(words[2], words[3]), _pack64(words[0], words[1]))
+    order = torch.arange(V + P, device=dev)
+    for k in keys:                        # least significant first
+        _, perm = torch.sort(k[order], stable=True)
+        order = order[perm]
+    pos = torch.arange(V + P, device=dev)
+    brk = pos == 0
+    for k in keys:
+        ks = k[order]
+        brk[1:] |= ks[1:] != ks[:-1]
+    run_start = torch.cummax(torch.where(brk, pos, 0), dim=0).values
+    last_vocab = torch.cummax(torch.where(order < V, pos, -1), dim=0).values
+    found = last_vocab >= run_start
+    rank = torch.where(
+        found, vrank[order[last_vocab.clamp(min=0)].clamp(max=V - 1)], -1)
+    out = torch.empty(P, dtype=torch.int32, device=dev)
+    is_query = order >= V
+    out[order[is_query] - V] = rank[is_query].to(torch.int32)
+    return out.reshape(shape)

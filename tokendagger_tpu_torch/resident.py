@@ -170,7 +170,7 @@ def run_resident(
     reps: int = 32,
     trials: int = 1,  # the reference's signature; one trial only
     verify: bool = True,
-    join_mode: str = "probe",  # the reference's; "probe" only
+    join_mode: str = "probe",  # read by the batch=1 pipeline only
     miss_mode: str = "host",
     batch: int = 1,
     impl: str = "auto",
@@ -191,16 +191,18 @@ def run_resident(
     windows), and the fused ASCII pipeline. ``cap_bytes_per_piece`` 0
     sizes the piece slots from exact host piece counts, and with
     ``probe_impl="chunks"`` routes the hot pieces (and on the general
-    pipeline, windows a multiple of 32768, the hot codepoints)."""
+    pipeline, windows a multiple of 32768, the hot codepoints).
+    As in the reference, ``batch > 1`` requires ``miss_mode="host"``
+    (ValueError otherwise), and ``join_mode`` is read only by the
+    ``batch=1`` pipeline (not ported: ROADMAP queue 1 item 12), so the
+    batched pipelines probe whatever it says."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but CUDA is not available")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
-    if miss_mode != "host":
-        raise _not_ported(f"miss_mode={miss_mode!r} (device BPE merge)", 13)
-    if join_mode != "probe":
-        raise _not_ported(f"join_mode={join_mode!r} (device BPE merge)", 13)
+    if batch > 1 and miss_mode != "host":
+        raise ValueError("batched resident mode requires miss_mode='host'")
     if trials != 1:
         raise ValueError("run_resident runs one trial (the reference "
                          "ignores trials)")

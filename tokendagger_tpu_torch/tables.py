@@ -1,4 +1,5 @@
-"""Whole-piece vocab hash table (``vhash8``) and the decode tables.
+"""Whole-piece vocab hash table (``vhash8``), the pair-merge tables and
+the decode tables.
 
 One bucket row per hash value holds 8 slots of [k0, k1, k2, k3, len,
 rank] (48 int32 = 192 B), slot-major: [k0 x8][k1 x8]...[rank x8]. The
@@ -7,11 +8,25 @@ padded; only tokens of at most 16 bytes enter. Entries that do not fit
 their bucket are dropped: a lookup of such a token is a deliberate miss,
 which the host splice resolves exactly with its whole-piece dict lookup
 first. Bit-identical to the JAX package's ``tables._build_vocab_hash8``.
+
+The pair-merge tables serve the device BPE merge (``ops/merge.py``).
+During a merge every part is a vocab token, so the rank of the bytes of
+two adjacent parts is a function of their two ids: ``PairTable`` maps
+``(a, b) -> rank(bytes(a) + bytes(b))`` over every 2-split of every
+token, as a two-choice bucketed hash whose lookup reads at most two
+48-byte rows. ``byte_rank`` gives the first ids and ``pair_lut`` the
+first-round ranks of byte pairs. All are bit-identical to the JAX
+package's ``tables.build_tables`` fields.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+
+MAX_RANK = np.int32(0x7FFFFFFF)
+BUCKET = 4  # slots per pair-table bucket
 
 # multiplicative mixing constants of the hash (choice 0 is the one used)
 _MIX = (
@@ -56,12 +71,8 @@ def _build_vocab_hash8(vocab_keys: np.ndarray, vocab_lens: np.ndarray,
     slots = np.zeros((nbuckets, 8, 6), dtype=np.int32)
     slots[:, :, 4] = -1  # len == -1 marks empty
     h = _mix_hash(a_all, b_all, 0, mask)
-    order = np.argsort(h, kind="stable")
+    order, rank_in_group = _bucket_slots(h, np.zeros(nbuckets, np.int64))
     hs = h[order]
-    group_start = np.r_[0, np.flatnonzero(np.diff(hs)) + 1]
-    rank_in_group = np.arange(len(hs)) - np.repeat(
-        group_start, np.diff(np.r_[group_start, len(hs)])
-    )
     accept = rank_in_group < 8
     idx = order[accept]
     bkt = hs[accept]
@@ -113,3 +124,118 @@ def build_decode_tables(ranks: dict[bytes, int], specials: dict[str, int]):
         off += len(tb)
     blob = np.frombuffer(b"".join(parts), dtype=np.uint8).copy()
     return offsets, lengths, blob, n_ids
+
+
+def _bucket_slots(h: np.ndarray, fill: np.ndarray) -> np.ndarray:
+    """Slot of each key in its bucket ``h`` when keys are placed in order
+    (stable by bucket) after the ``fill`` already there; returns (order,
+    slot in that order)."""
+    order = np.argsort(h, kind="stable")
+    hs = h[order]
+    group_start = np.r_[0, np.flatnonzero(np.diff(hs)) + 1]
+    rank_in_group = np.arange(len(hs)) - np.repeat(
+        group_start, np.diff(np.r_[group_start, len(hs)]))
+    return order, fill[hs] + rank_in_group
+
+
+@dataclass
+class PairTable:
+    """Two-choice bucketed hash table for (a, b) -> merged rank.
+
+    ``rows`` (nbuckets, 12) int32: per bucket 4 slots laid out as
+    [ka0..ka3, kb0..kb3, val0..val3]; empty slots have ka == -1. A lookup
+    reads the row of the first hash, then the second's, and compares 4
+    slots in each."""
+
+    rows: np.ndarray
+    mask: int  # nbuckets - 1
+    n_keys: int
+
+    @staticmethod
+    def build(pairs_a: np.ndarray, pairs_b: np.ndarray,
+              vals: np.ndarray) -> "PairTable":
+        n = len(pairs_a)
+        nbuckets = 1 << max(10, int(np.ceil(np.log2(max(1, n) / 1.5))))
+        for _attempt in range(3):
+            mask = nbuckets - 1
+            ka = np.full((nbuckets, BUCKET), -1, dtype=np.int32)
+            kb = np.zeros((nbuckets, BUCKET), dtype=np.int32)
+            va = np.zeros((nbuckets, BUCKET), dtype=np.int32)
+            fill = np.zeros(nbuckets, dtype=np.int64)
+            remaining = np.arange(n)
+            for which in (0, 1):
+                if len(remaining) == 0:
+                    break
+                h = _mix_hash(pairs_a[remaining], pairs_b[remaining], which,
+                              mask)
+                order, slot = _bucket_slots(h, fill)
+                hs = h[order]
+                accept = slot < BUCKET
+                idx = remaining[order][accept]
+                bkt, sl = hs[accept], slot[accept]
+                ka[bkt, sl] = pairs_a[idx]
+                kb[bkt, sl] = pairs_b[idx]
+                va[bkt, sl] = vals[idx]
+                np.add.at(fill, bkt, 1)
+                remaining = remaining[order][~accept]
+            if len(remaining) == 0:
+                return PairTable(rows=np.concatenate([ka, kb, va], axis=1),
+                                 mask=mask, n_keys=n)
+            nbuckets <<= 1  # a bucket overflowed (very rare): grow, retry
+        raise RuntimeError("pair hash table build failed after growth "
+                           "retries")
+
+    def lookup_np(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """rank(bytes(a) + bytes(b)) per element, MAX_RANK on a miss."""
+        out = np.full(a.shape, MAX_RANK, dtype=np.int32)
+        for which in (0, 1):
+            rows = self.rows[_mix_hash(a, b, which, self.mask)]
+            hit = ((rows[..., 0:4] == a[..., None])
+                   & (rows[..., 4:8] == b[..., None]))
+            vals = np.where(hit, rows[..., 8:12], -1).max(-1)
+            out = np.where(hit.any(-1) & (out == MAX_RANK), vals, out)
+        return out
+
+
+def pair_relation(ranks: dict[bytes, int]):
+    """(a, b, rank) int32 arrays: for every token and every 2-split of its
+    bytes into two tokens, their ranks and the token's."""
+    pa: list[int] = []
+    pb: list[int] = []
+    pv: list[int] = []
+    for tb, rank in ranks.items():
+        for i in range(1, len(tb)):
+            ra = ranks.get(tb[:i])
+            if ra is None:
+                continue
+            rb = ranks.get(tb[i:])
+            if rb is not None:
+                pa.append(ra)
+                pb.append(rb)
+                pv.append(rank)
+    return (np.asarray(pa, dtype=np.int32), np.asarray(pb, dtype=np.int32),
+            np.asarray(pv, dtype=np.int32))
+
+
+def byte_rank(ranks: dict[bytes, int]) -> np.ndarray:
+    """(256,) int32 rank of each single byte, -1 where it has none."""
+    out = np.full(256, -1, dtype=np.int32)
+    for i in range(256):
+        r = ranks.get(bytes([i]))
+        if r is not None:
+            out[i] = r
+    return out
+
+
+def pair_lut(ranks: dict[bytes, int]) -> np.ndarray:
+    """(256, 256) int32 rank of each 2-byte token, MAX_RANK where none."""
+    out = np.full((256, 256), MAX_RANK, dtype=np.int32)
+    for tb, rank in ranks.items():
+        if len(tb) == 2:
+            out[tb[0], tb[1]] = rank
+    return out
+
+
+def build_pair_table(ranks: dict[bytes, int]) -> PairTable:
+    """The pair-merge table of a mergeable-ranks dict."""
+    return PairTable.build(*pair_relation(ranks))

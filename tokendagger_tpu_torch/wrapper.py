@@ -9,13 +9,12 @@ surface. Backends:
   version) and decodes large id lists there with ``ops/decode.decode_ids``;
 * ``"host"`` uses the exact ``hostengine.HostEngine``;
 * ``"auto"`` sends inputs under ``_DEVICE_MIN_BYTES`` to the host engine
-  and the rest to the device. A tokenizer that ``DeviceEngine`` cannot
-  serve (a pattern outside the four profiles, or a vocabulary without
-  every single-byte rank: ``engine.unsupported_reason``) encodes on the
-  host engine under "auto" and raises under "device".
+  and the rest to the device, by size alone.
 
-Decoding needs only the rank -> bytes tables, so the device decode serves
-every tokenizer. With ``"device"`` or ``"auto"`` and no card,
+``DeviceEngine`` serves every tokenizer: a pattern of the four profiles
+with a rank for every single byte takes its stream path, any other its
+piece path (a host split, then the device BPE merge). Decoding needs
+only the rank -> bytes tables. With ``"device"`` or ``"auto"`` and no card,
 construction raises; a device or kernel failure raises too (wrapped as
 ``TokenDaggerError``) and is never rerouted to the host. Both engines
 emit the same ids.
@@ -35,7 +34,7 @@ import torch
 from .convert import (
     EngineTables, decode_tables_from_ranks, engine_tables_from_ranks,
 )
-from .engine import DeviceEngine, unsupported_reason
+from .engine import DeviceEngine
 from .hostengine import HostEngine, byte_pair_merge
 from .vocab import vocab_list_to_ranks
 
@@ -119,8 +118,6 @@ class Tokenizer:
         except Exception as e:  # noqa: BLE001 - mirror reference error wrapping
             raise TokenDaggerError(f"Failed to initialize engine: {e}") from e
 
-        # a static property of the tokenizer: "auto" encodes it on the host
-        self._engine_fits = unsupported_reason(pattern, ranks) is None
         self._tables = tables
         self._device = None         # DeviceEngine, built on first device use
         self._decode = None         # decode tables on the device, lazily
@@ -157,17 +154,12 @@ class Tokenizer:
             return self._device
 
     def _use_device(self, nbytes: int) -> bool:
-        """Size routing, for decode and (through ``_encode_on_device``)
-        encode."""
+        """Size routing, for encode and decode."""
         if self.backend == "host":
             return False
         if self.backend == "device":
             return True
         return nbytes >= self._DEVICE_MIN_BYTES
-
-    def _encode_on_device(self, nbytes: int) -> bool:
-        return self._use_device(nbytes) and (
-            self.backend == "device" or self._engine_fits)
 
     @staticmethod
     def _nbytes(text: str) -> int:
@@ -182,7 +174,7 @@ class Tokenizer:
     # ------------------------------------------------------------------
     def encode_ordinary(self, text: str) -> list[int]:
         try:
-            if self._encode_on_device(self._nbytes(text)):
+            if self._use_device(self._nbytes(text)):
                 return self._get_device().encode_ordinary_batch([text])[0]
             return self._host.encode_ordinary(text)
         except Exception as e:  # noqa: BLE001
@@ -203,7 +195,7 @@ class Tokenizer:
     def _encode_texts(self, texts: Sequence[str],
                       allowed: AbstractSet[str]) -> list[list[int]]:
         try:
-            if self._encode_on_device(sum(self._nbytes(t) for t in texts)):
+            if self._use_device(sum(self._nbytes(t) for t in texts)):
                 return self._get_device().encode_batch(list(texts), allowed)
             return [self._host.encode(t, allowed)[0] for t in texts]
         except Exception as e:  # noqa: BLE001
