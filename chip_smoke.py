@@ -68,11 +68,24 @@
    the auto run gave them at each of the path's shapes (the decode, the
    hot-codepoint classes, the hot-piece probe), and on the same shapes
    with an empty row, an all-kept (overflowing) row and a skewed row
-   (K5+K6 must run one kernel per call); and K9, K1's codepoint entry
-   (all four profiles), K2+K3 and K4 on the inputs each run gave them,
-   with an edge row each. Every kernel's times at the path's shapes join
-   its row of the kernels line (``ms_by_shape`` and kin, K2+K3's
-   ``library_ms_by_shape`` and ``launches_per_call_by_shape`` too).
+   (K5+K6 must run one kernel per call).
+   Then run_resident(batch=1) at 8 windows of 1 MB, one a repetition,
+   cycled 20 times ("single": auto on multi-script text and on ASCII,
+   impl="scatter", miss_mode="device" with the probe and the sort
+   joins), each window then alone, and the batched formulations at
+   8 x 1 MB ("formulations": impl sort and scatter x starts_impl jnp and
+   bits, compact_impl sort): ids equal to the host engine's, no window
+   overflowed, every kernel of each run launched. K9, K1's codepoint
+   entry (all four profiles), K2+K3, K4 and the merge are then held
+   against their plain versions on the inputs every resident, single
+   and formulation run gave them (each distinct input once), with edge
+   rows, and timed once at each shape. The char form and match_lengths
+   + chain_starts are held against K1's codepoint entry at (8, 1 M) for
+   the four profiles, and the sort formulations are timed beside the
+   kernels of the same contract on one 1 MB window. Every kernel's times
+   at these shapes join its row of the kernels line (``ms_by_shape``
+   and kin, K2+K3's ``library_ms_by_shape`` and
+   ``launches_per_call_by_shape`` too).
 7. Holds the kernels of the batched grids of short segments
    (``ops/batched.resolve_grid``) against their plain versions at the
    grid shapes (4096, 256), (1024, 1024) and (256, 4096), stage by stage,
@@ -1136,7 +1149,8 @@ LAUNCHERS = (("utf8_decode_block", "pretokenize", "_launch_k9"),
              ("compact_piece_keys", "compact", "_launch_k2k3"),
              ("compact_by_mask", "compact", "_launch_k4"),
              ("compact_record", "compact", "_launch_k5k6"),
-             ("expand_route", "compact", "_launch_k7k8"))
+             ("expand_route", "compact", "_launch_k7k8"),
+             ("merge", "merge", "_launch"))
 
 
 def _arg_key(x):
@@ -1374,103 +1388,156 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
 
 
 SHARED_KERNELS = ("utf8_decode_block", "piece_starts_cp",
-                  "compact_piece_keys", "compact_by_mask")
+                  "compact_piece_keys", "compact_by_mask", "merge")
+
+
+def _fingerprint(args) -> str:
+    """A hash of a launch's arguments: every tensor's dtype, shape and
+    bytes, and the scalars."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for a in args:
+        for x in (a if isinstance(a, list) else [a]):
+            if isinstance(x, torch.Tensor):
+                h.update(repr((x.dtype, tuple(x.shape))).encode())
+                h.update(x.cpu().numpy().tobytes())
+            else:
+                h.update(repr(x).encode())
+    return h.hexdigest()
+
+
+def _one_row(x: torch.Tensor, row: int, value) -> torch.Tensor:
+    y = x.clone()
+    y[row] = value
+    return y
 
 
 def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
-    """The kernels the resident path shares with the other paths (K9, K1's
-    codepoint entry, K2+K3, K4) against their plain versions on the
-    inputs each resident run gave them (``runs``: label -> the run's
-    ``recorded_inputs``), and on edge rows at the same shapes: random
-    bytes for K9, a ragged char count for K1 (all four profiles), an
-    empty window for K2+K3, an all-missed row for K4. Returns each
+    """The kernels the single-window, batched and resident paths share
+    with the other paths (K9, K1's codepoint entry, K2+K3, K4, the merge)
+    against their plain versions on the inputs each run gave them
+    (``runs``: label -> the run's ``recorded_inputs``), each distinct
+    input once, and on edge rows at the same shapes, each edge alone so
+    that a one-row batch takes them all: random bytes for K9; a ragged
+    and an empty window for K1 (all four profiles); an empty window for
+    K2+K3; an all-kept and an empty row for K4; an empty and a full-width
+    row for the merge. Times each kernel once at each shape. Returns each
     kernel's largest error, and its timings by shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import merge as M
     from tokendagger_tpu_torch.ops import pretokenize as PT
 
     todo: dict = {}
     for label, seen in runs.items():
         for key, args in seen.items():
             if key[0] in SHARED_KERNELS:
-                todo.setdefault(key, (label, args))
+                entry = todo.setdefault(_fingerprint(args), (key, [], args))
+                entry[1].append(label)
     errs = dict.fromkeys(SHARED_KERNELS, 0)
     times: dict = {k: {} for k in SHARED_KERNELS}
+    timed = set()
     g = torch.Generator(device=dev).manual_seed(seed)
-    for key, (label, args) in todo.items():
+    for key, labels, args in todo.values():
         name = key[0]
+        t = None
         if name == "utf8_decode_block":
             (d,) = args
             B, N = shape = d.shape
-            edge = d.clone()
-            edge[0] = torch.randint(0, 256, (N,), generator=g, device=dev,
-                                    dtype=torch.uint8)
+            edge = _one_row(d, 0, torch.randint(
+                0, 256, (N,), generator=g, device=dev, dtype=torch.uint8))
             err = max(max_abs_err(PT.utf8_decode_block(x),
                                   PT.utf8_decode_block_plain(x))
                       for x in (d, edge))
-            t = timings(lambda: PT.utf8_decode_block(d),
-                        lambda: PT.utf8_decode_block_plain(d),
-                        9 * B * N, 20 * B * N)
+            if key not in timed:
+                t = timings(lambda: PT.utf8_decode_block(d),
+                            lambda: PT.utf8_decode_block_plain(d),
+                            9 * B * N, 20 * B * N)
         elif name == "piece_starts_cp":
             cp, m, _ = args
             B, C = shape = cp.shape
-            short = m.clone()
-            short[0] = 12345   # a ragged length inside the first segment
-            short[1] = 0       # an empty window
-            err = 0
+            # a ragged length inside the first segment; an empty window
+            variants = (m, _one_row(m, 0, min(12345, C)), _one_row(m, -1, 0))
+            by_prof = {}
             for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
-                e = max(max_abs_err(
+                by_prof[prof] = max(max_abs_err(
                     [BP.piece_starts_chars(cp, mm, profile=prof,
                                            packed_out=True)],
                     [BP.piece_starts_chars_plain(cp, mm, profile=prof)])
-                    for mm in (m, short))
-                print(f"K1 piece_starts_cp[{prof}] {(B, C)}: max_abs_err {e}")
-                err = max(err, e)
-            passes = BP.starts_passes("llama4", C)
-            t = timings(lambda: BP.piece_starts_chars(cp, m, packed_out=True),
-                        lambda: BP.piece_starts_chars_plain(cp, m),
-                        4 * B * C + B * C / 8 + 4 * B, passes * B * C / 32,
-                        plain_reps=3)
-            t["blocks_per_window"] = k1_blocks("codepoints", B, C)
+                    for mm in variants)
+            print(f"K1 piece_starts_cp {(B, C)} [{labels[0]}]: max_abs_err "
+                  f"by profile {json.dumps(by_prof)}")
+            err = max(by_prof.values())
+            if key not in timed:
+                passes = BP.starts_passes("llama4", C)
+                t = timings(
+                    lambda: BP.piece_starts_chars(cp, m, packed_out=True),
+                    lambda: BP.piece_starts_chars_plain(cp, m),
+                    4 * B * C + B * C / 8 + 4 * B, passes * B * C / 32,
+                    plain_reps=3)
+                t["blocks_per_window"] = k1_blocks("codepoints", B, C)
         elif name == "compact_piece_keys":
             starts, d, nb, p_cap, packed = args
             B, N = d.shape
             shape = (B, N, p_cap)
-            empty = nb.clone()
-            empty[0] = 0
             err = max(max_abs_err(
                 CP.compact_piece_keys(starts, d, n, p_cap, packed=packed),
                 CP.compact_piece_keys_plain(starts, d, n, p_cap,
                                             packed=packed))
-                for n in (nb, empty))
-            t = time_k23(starts, d, nb, p_cap, packed)
-        else:                                       # compact_by_mask
+                for n in (nb, _one_row(nb, 0, 0)))
+            if key not in timed:
+                t = time_k23(starts, d, nb, p_cap, packed)
+        elif name == "compact_by_mask":
             arrays, mask, fill = args
             B, P = shape = mask.shape
-            edge = mask.clone()
-            edge[0] = True     # an all-kept row
-            edge[1] = False    # an empty row
             err = max(max_abs_err(CP.compact_by_mask(arrays, mm, fill=fill),
                                   CP.compact_by_mask_plain(arrays, mm,
                                                            fill=fill))
-                      for mm in (mask, edge))
-            kept = int(mask.sum())
-            k = len(arrays)
-            t = timings(lambda: CP.compact_by_mask(arrays, mask, fill=fill),
-                        lambda: CP.compact_by_mask_plain(arrays, mask,
-                                                         fill=fill),
-                        B * P + 4 * k * kept + 4 * k * B * P, B * P)
-        at = f"resident {label} {tuple(shape)}"
+                      for mm in (mask, _one_row(mask, 0, True),
+                                 _one_row(mask, -1, False)))
+            if key not in timed:
+                kept = int(mask.sum())
+                k = len(arrays)
+                t = timings(
+                    lambda: CP.compact_by_mask(arrays, mask, fill=fill),
+                    lambda: CP.compact_by_mask_plain(arrays, mask,
+                                                     fill=fill),
+                    B * P + 4 * k * kept + 4 * k * B * P, B * P)
+        else:                                       # merge
+            by, ln, byte_rank, rows, mask, lut = args
+            R, W = shape = by.shape
+
+            def plain(n):
+                return M.merge_rows_local(by, n, byte_rank, rows, mask=mask,
+                                          pair_lut=lut)
+
+            err = max(max_abs_err(
+                M.merge_rows(by, n, byte_rank, rows, mask, lut), plain(n))
+                for n in (ln, _one_row(ln, 0, 0), _one_row(ln, -1, W)))
+            if key not in timed:
+                n_bytes, n_ops, n_merges, longest = merge_cost(
+                    ln, plain(ln)[1], W, lut is not None)
+                t = timings(lambda: M.merge_rows(by, ln, byte_rank, rows,
+                                                 mask, lut),
+                            lambda: plain(ln), n_bytes, n_ops, plain_reps=3)
+                t.update(merges=n_merges, longest_row_merges=longest)
+        at = f"{labels[0]} {tuple(shape)}"
+        also = ""
+        if len(labels) > 1:
+            also = f" (the same inputs in: {', '.join(labels[1:])})"
         print(f"{name} [{at}]: max_abs_err {err} (main-path inputs and "
-              f"edge rows); {show(t)}")
+              f"edge rows){also}" + (f"; {show(t)}" if t else ""))
         if err:
             raise AssertionError(f"{name} differs from its plain version at "
                                  f"{at}")
         errs[name] = max(errs[name], err)
-        times[name][at] = t
+        if t is not None:
+            timed.add(key)
+            times[name][at] = t
     missing = [k for k in SHARED_KERNELS if not times[k]]
     if missing:
-        raise AssertionError(f"resident: no recorded inputs for {missing}")
+        raise AssertionError(f"no recorded inputs for {missing}")
     return errs, times
 
 
@@ -1905,6 +1972,21 @@ def merge_rows_input(seed: int, R: int, W: int, dev):
     return torch.from_numpy(buf).to(dev), torch.from_numpy(lens).to(dev)
 
 
+def merge_cost(ln, counts, W: int, lut: bool) -> tuple[int, int, int, int]:
+    """The merge's bound inputs for rows of width W with lengths ``ln``
+    that end with ``counts`` tokens: bytes (rows and lengths read, ids
+    and counts written, a 48-byte pair row per lookup, two per merge; the
+    first round reads the lut's 4 bytes a pair, or a row a pair), ops (a
+    scan of the row per merge), the merges and the longest row's."""
+    R = ln.shape[0]
+    merges = (ln.to(torch.int64) - counts).clamp(min=0)
+    n_merges = int(merges.sum())
+    pairs = int((ln.to(torch.int64) - 1).clamp(min=0).sum())
+    n_bytes = (5 * R * W + 8 * R + 96 * n_merges
+               + pairs * (4 if lut else 48))
+    return n_bytes, n_merges * W, n_merges, int(merges.max()) if R else 0
+
+
 def check_merge_kernel(seed: int, dev, mt) -> tuple[dict, float]:
     """The merge kernel against the plain loop on the card at the piece
     path's shapes (8,192 rows of 16, 64, 256) and resolve_window's 4 MB
@@ -1930,22 +2012,15 @@ def check_merge_kernel(seed: int, dev, mt) -> tuple[dict, float]:
                 raise AssertionError(f"merge kernel differs at {(R, W)} "
                                      f"(pair_lut {lut is not None})")
         lut = mt.pair_lut if path == "window" else None
-        merges = (ln.to(torch.int64) - want[1]).clamp(min=0)
-        n_merges, longest = int(merges.sum()), int(merges.max())
-        pairs = int((ln.to(torch.int64) - 1).clamp(min=0).sum())
-        # bytes: rows and lengths read, ids and counts written, a 48-byte
-        # pair row per lookup (two per merge; the first round reads the
-        # lut's 4 bytes a pair, or a row a pair); ops: a scan of the row
-        # per merge
-        n_bytes = (5 * R * W + 8 * R + 96 * n_merges
-                   + pairs * (4 if lut is not None else 48))
+        n_bytes, n_ops, n_merges, longest = merge_cost(
+            ln, want[1], W, lut is not None)
         t = timings(lambda: M.merge_rows(by, ln, mt.byte_rank, mt.pair_rows,
                                          mt.pair_mask, lut),
                     lambda: M.merge_rows_local(by, ln, mt.byte_rank,
                                                mt.pair_rows,
                                                mask=mt.pair_mask,
                                                pair_lut=lut),
-                    n_bytes, n_merges * W, plain_reps=3)
+                    n_bytes, n_ops, plain_reps=3)
         t.update(merges=n_merges, longest_row_merges=longest,
                  latency_floor_ms=longest * l2_ns * 1e-6)
         key = f"{path} ({R}, {W})" + (" pair_lut" if lut is not None else "")
@@ -2120,6 +2195,290 @@ def run_pieces(seed: int, dev, n_bytes: int = 9 << 19
     return row, launches, window_launches
 
 
+# ===========================================================================
+# run_resident's single-window pipeline, the other batched formulations,
+# the char-form starts and the sort formulations beside the kernels
+# ===========================================================================
+
+# (label, text, run_resident arguments, impl expected, kernels that must
+# launch in the run)
+SINGLE_RUNS = (
+    ("auto", "multiscript", {}, "sort", ("piece_starts_cp",)),
+    ("ascii auto", "ascii", {}, "ascii-sort", ("piece_starts_cp",)),
+    ("scatter", "multiscript", dict(impl="scatter"), "scatter",
+     ("utf8_decode_block", "piece_starts_cp", "compact_by_mask")),
+    ("device/probe", "multiscript", dict(miss_mode="device"), "sort",
+     ("piece_starts_cp", "compact_piece_keys", "compact_by_mask", "merge")),
+    ("device/sort", "multiscript", dict(miss_mode="device",
+                                        join_mode="sort"), "sort",
+     ("piece_starts_cp", "compact_piece_keys", "compact_by_mask", "merge")),
+)
+# the batched formulations: (impl, starts_impl) with compact_impl="sort"
+FORMULATIONS = (("sort", "jnp", ()), ("sort", "bits", ("piece_starts_cp",)),
+                ("scatter", "jnp", ("utf8_decode_block", "compact_by_mask")),
+                ("scatter", "bits", ("utf8_decode_block", "piece_starts_cp",
+                                     "compact_by_mask")))
+
+
+def single_counters():
+    from tokendagger_tpu_torch.ops import merge as M
+
+    c = resident_counters()
+    return dict(utf8_decode_block=c["utf8_decode_block"],
+                piece_starts_cp=c["piece_starts_cp"],
+                compact_piece_keys=c["compact_piece_keys"],
+                compact_by_mask=c["compact_by_mask"], merge=M.merge_rows)
+
+
+def single_texts(seed: int) -> dict:
+    """The resident phase's multi-script corpus and the stream phase's
+    ASCII generator, 9 MB each."""
+    return {"multiscript": multiscript(9 * WINDOW, seed + 9).encode(),
+            "ascii": corpus(9 * WINDOW, seed + 3).encode()}
+
+
+def show_run(label: str, r, wall_s: float) -> None:
+    print(f"{label}: impl {r.impl}, starts_impl {r.starts_impl}, "
+          f"compact_impl {r.compact_impl}, probe_impl {r.probe_impl}, "
+          f"match_host {r.match_host}, overflow_windows "
+          f"{r.overflow_windows}, total_tokens {r.total_tokens}, "
+          f"{wall_s:.1f} s")
+    print(f"{label}: kernel_mbps {r.kernel_mbps}, device_ms {r.device_ms}, "
+          f"wall_mbps {r.wall_mbps} (wall_ms {r.wall_ms}), stage_us "
+          f"{json.dumps(r.stage_us)}")
+
+
+def run_single_phase(seed: int, dev, *, reps: int = 20,
+                     n_ranks=200_000) -> tuple[dict, dict]:
+    """run_resident(batch=1) at full width: 8 windows of 1 MB, one a
+    repetition, cycled 20 times, with the resident phase's stand-in
+    vocabulary: multi-script text (auto gives "sort"), ASCII text (auto
+    gives "ascii-sort"), impl="scatter", and miss_mode="device" with the
+    probe and the sort joins. Each run's ids must equal the host engine's
+    with no overflow, and each run's kernels must launch (counts set to 0
+    just before it). The timed run checks window 0 against the host
+    engine and reads the overflow of its last repetition's window, so
+    each window then runs alone once (untimed, uncounted) and must equal
+    the host engine with no overflow. Returns the path's launches,
+    summed, and by run the arguments of each kernel's first launch at
+    each shape."""
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, run_resident
+
+    ranks = standin_vocab(n_ranks, seed, extra=multiscript(1 << 20,
+                                                          seed + 4))
+    texts = single_texts(seed)
+    counters = single_counters()
+    launches = dict.fromkeys(counters, 0)
+    inputs: dict = {}
+    for label, text, kw, impl, need in SINGLE_RUNS:
+        for k in counters.values():
+            k.launches = 0
+        t = time.perf_counter()
+        with recorded_inputs() as inputs[f"single {label}"]:
+            r = run_resident(ranks, {}, LLAMA4_PATTERN, texts[text],
+                             window=WINDOW, n_windows=BATCH, reps=reps,
+                             device=dev, **kw)
+        run = {n: k.launches for n, k in counters.items()}
+        show_run(f"single {label}", r, time.perf_counter() - t)
+        print(f"single {label}: launches {json.dumps(run)}")
+        if not (r.match_host and r.overflow_windows == 0 and r.impl == impl
+                and r.batch == 1 and r.starts_impl == "jnp"
+                and r.compact_impl == "sort"):
+            raise AssertionError(f"single {label}: ids differ from the host "
+                                 "engine, a window overflowed, or the run "
+                                 "took another pipeline")
+        dead = [n for n in need if run[n] == 0]
+        if dead:
+            raise AssertionError(f"single {label}: kernels never launched: "
+                                 f"{dead}")
+        for n, v in run.items():
+            launches[n] += v
+        # window w of the timed run is the first window of the text from
+        # byte w * WINDOW on
+        t = time.perf_counter()
+        tokens = []
+        for w in range(BATCH):
+            c = run_resident(ranks, {}, LLAMA4_PATTERN,
+                             texts[text][w * WINDOW :], window=WINDOW,
+                             n_windows=1, reps=1, overlap_trial=False,
+                             device=dev, **kw)
+            if not (c.match_host and c.overflow_windows == 0
+                    and c.impl == impl):
+                raise AssertionError(f"single {label}: window {w} alone "
+                                     "differs from the host engine or "
+                                     "overflowed")
+            tokens.append(c.total_tokens)
+        print(f"single {label}: each of the {BATCH} windows alone equals "
+              f"the host engine, 0 overflowed (tokens {tokens}), "
+              f"{time.perf_counter() - t:.1f} s")
+    return launches, inputs
+
+
+def run_formulations(seed: int, dev, *, reps: int = 5,
+                     n_ranks=200_000) -> tuple[dict, dict]:
+    """run_resident's batched formulations at 8 x 1 MB of the multi-script
+    text: impl "sort" and "scatter" x starts_impl "jnp" (the char form in
+    plain torch) and "bits" (K1), compact_impl "sort". Ids of every
+    window equal to the host engine, no window overflowed, each run's
+    kernels launched. Returns the path's launches, summed, and by run
+    the arguments of each kernel's first launch at each shape."""
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, run_resident
+
+    ranks = standin_vocab(n_ranks, seed, extra=multiscript(1 << 20,
+                                                          seed + 4))
+    text = single_texts(seed)["multiscript"]
+    counters = single_counters()
+    launches = dict.fromkeys(counters, 0)
+    inputs: dict = {}
+    for impl, starts_impl, need in FORMULATIONS:
+        for k in counters.values():
+            k.launches = 0
+        label = f"formulation {impl}/{starts_impl}"
+        t = time.perf_counter()
+        with recorded_inputs() as inputs[label]:
+            r = run_resident(ranks, {}, LLAMA4_PATTERN, text, window=WINDOW,
+                             n_windows=BATCH, batch=BATCH, reps=reps,
+                             impl=impl, starts_impl=starts_impl,
+                             compact_impl="sort", overlap_trial=False,
+                             device=dev)
+        run = {n: k.launches for n, k in counters.items()}
+        show_run(label, r, time.perf_counter() - t)
+        print(f"{label}: launches {json.dumps(run)}")
+        if not (r.match_host and r.overflow_windows == 0 and r.impl == impl
+                and r.starts_impl == starts_impl
+                and r.compact_impl == "sort"):
+            raise AssertionError(f"{label}: ids differ from the host engine, "
+                                 "a window overflowed, or the run took "
+                                 "another pipeline")
+        dead = [n for n in need if run[n] == 0]
+        if dead:
+            raise AssertionError(f"{label}: kernels never launched: {dead}")
+        for n, v in run.items():
+            launches[n] += v
+    return launches, inputs
+
+
+def resident_windows(seed: int, dev):
+    """The 8 char-aligned 1 MB windows of the multi-script text on the
+    card, as run_resident stages them, and their lengths."""
+    from tokendagger_tpu_torch.utils.windows import char_align
+
+    text = single_texts(seed)["multiscript"]
+    by = np.zeros((BATCH, WINDOW), np.uint8)
+    nb = np.zeros(BATCH, np.int32)
+    for w in range(BATCH):
+        lo = (w * WINDOW) % max(1, len(text) - WINDOW)
+        arr = char_align(np.frombuffer(text[lo : lo + WINDOW], np.uint8))
+        by[w, : len(arr)] = arr
+        nb[w] = len(arr)
+    return torch.from_numpy(by).to(dev), torch.from_numpy(nb).to(dev)
+
+
+def check_char_forms(seed: int, dev) -> tuple[int, dict]:
+    """The char-form starts (``pretokenize.piece_starts``, plain torch on
+    the card) and ``match_lengths`` + ``chain_starts`` against K1's
+    codepoint entry at (8, 1 M) chars of the resident windows, for the
+    four profiles; the flags must be equal. Prints each one's
+    synchronized call time beside K1's. Returns the largest difference
+    and K1's time by profile."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+    from tokendagger_tpu_torch.unicode_tables import get_two_level_tables
+
+    d, nb = resident_windows(seed, dev)
+    cp, _, _, m = PT.utf8_decode(d, nb)
+    page_ids, pages = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                       for a in get_two_level_tables())
+    err, times = 0, {}
+    for profile in ("llama4", "nocontract", "cl100k", "gpt2"):
+        k1 = BP.piece_starts_chars(cp, m, profile=profile)
+        char = PT.piece_starts(cp, m, page_ids, pages, profile=profile)
+        chain = PT.chain_starts(PT.match_lengths(
+            cp, m, page_ids, pages, profile=profile), m)
+        e = max(max_abs_err([char.to(torch.int32)], [k1.to(torch.int32)]),
+                max_abs_err([chain.to(torch.int32)], [k1.to(torch.int32)]))
+        t = dict(
+            k1_ms=median_ms(lambda: BP.piece_starts_chars(
+                cp, m, profile=profile), reps=5),
+            char_ms=median_ms(lambda: PT.piece_starts(
+                cp, m, page_ids, pages, profile=profile), reps=3, warmup=1),
+            chain_ms=median_ms(lambda: PT.chain_starts(PT.match_lengths(
+                cp, m, page_ids, pages, profile=profile), m), reps=3,
+                warmup=1))
+        print(f"char forms {profile} at {tuple(cp.shape)}: "
+              f"{int(k1.sum())} starts, max_abs_err {e} against K1's "
+              f"codepoint entry; synchronized call ms: K1 "
+              f"{t['k1_ms']:.4f}, char form {t['char_ms']:.4f}, "
+              f"match_lengths + chain_starts {t['chain_ms']:.4f}")
+        if e:
+            raise AssertionError(f"char forms {profile}: flags differ from "
+                                 "K1's codepoint entry")
+        err = max(err, e)
+        times[profile] = t
+    return err, times
+
+
+def time_sort_formulations(seed: int, dev) -> dict:
+    """The sort formulations beside the kernels that compute the same
+    contract, on one 1 MB window of the multi-script text: outputs equal,
+    then device-only ms and synchronized call ms of each:
+    ``utf8_decode_sorted`` vs ``utf8_decode`` (K9 + K4),
+    ``join.compact_piece_keys_sorted`` vs ``compact.compact_piece_keys``
+    (K2+K3), ``fused.finalize_host_sorted`` vs ``compact.finalize`` (K4)."""
+    from tokendagger_tpu_torch.convert import tables_from_ranks
+    from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import fused as FU
+    from tokendagger_tpu_torch.ops import join as J
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+    from tokendagger_tpu_torch.unicode_tables import get_two_level_tables
+
+    d8, nb8 = resident_windows(seed, dev)
+    d, nb = d8[:1].contiguous(), nb8[:1].contiguous()
+    N = d.shape[1]
+    p_cap = FU.caps_for(N)["p_cap"]
+    ranks = standin_vocab(200_000, seed, extra=multiscript(1 << 20,
+                                                          seed + 4))
+    tables = tables_from_ranks(ranks, device=dev)
+    cp, cob, boc, m = PT.utf8_decode(d, nb)
+    stb = PT.starts_to_bytes(PT.compute_starts(cp, m, *get_two_level_tables()),
+                             cob, d, nb)
+    sb, pl, k0, k1, k2, k3, npc = CP.compact_piece_keys(stb, d, nb, p_cap)
+    rank = J.vocab_probe8(k0, k1, k2, k3, pl, tables.vhash8_rows,
+                          tables.vhash8_mask)
+    pairs = {
+        "decode": (lambda: PT.utf8_decode_sorted(d, nb),
+                   lambda: PT.utf8_decode(d, nb),
+                   "utf8_decode_sorted", "utf8_decode (K9 + K4)"),
+        "keys": (lambda: J.compact_piece_keys_sorted(stb, d, nb, p_cap),
+                 lambda: CP.compact_piece_keys(stb, d, nb, p_cap),
+                 "join.compact_piece_keys_sorted",
+                 "compact.compact_piece_keys (K2+K3)"),
+        "finalize": (lambda: FU.finalize_host_sorted(
+            sb, pl, rank, npc, N, p_cap=p_cap, untrimmed=True),
+            lambda: CP.finalize(sb, pl, rank, npc, p_cap=p_cap),
+            "fused.finalize_host_sorted", "compact.finalize (K4)"),
+    }
+    out = {}
+    for stage, (sorted_fn, kernel_fn, sname, kname) in pairs.items():
+        a = [x.to(torch.int64) for x in sorted_fn()]
+        b = [x.to(torch.int64) for x in kernel_fn()]
+        e = max_abs_err(a, b)
+        if e:
+            raise AssertionError(f"sort formulation {stage}: {sname} and "
+                                 f"{kname} differ")
+        t = dict(sorted_ms=device_ms(sorted_fn),
+                 sorted_call_ms=median_ms(sorted_fn),
+                 kernel_ms=device_ms(kernel_fn),
+                 kernel_call_ms=median_ms(kernel_fn))
+        print(f"sort formulation {stage}, one 1 MB window ({int(npc[0])} "
+              f"pieces): {sname} {t['sorted_ms']:.4f} ms on the device "
+              f"({t['sorted_call_ms']:.4f} ms per synchronized call); "
+              f"{kname} {t['kernel_ms']:.4f} ({t['kernel_call_ms']:.4f}); "
+              "outputs equal")
+        out[stage] = t
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2156,9 +2515,15 @@ def main() -> int:
     # before the long stream and engine phases
     resident, inputs = run_resident_phase(args.seed, "cuda")
     rows += check_resident_kernels(inputs["auto cap"], "cuda")
-    resident_errs, resident_times = check_resident_shared(inputs, args.seed,
-                                                          "cuda")
-    del inputs
+    single, single_inputs = run_single_phase(args.seed, "cuda")
+    formulations, form_inputs = run_formulations(args.seed, "cuda")
+    resident_errs, resident_times = check_resident_shared(
+        {**inputs, **single_inputs, **form_inputs}, args.seed, "cuda")
+    del inputs, single_inputs, form_inputs
+    char_form_err, _ = check_char_forms(args.seed, "cuda")
+    resident_errs["piece_starts_cp"] = max(
+        resident_errs.get("piece_starts_cp", 0), char_form_err)
+    time_sort_formulations(args.seed, "cuda")
     stream = run_stream(args.seed, args.mb, "cuda")
     engine, engine_errs, engine_times = run_engine(args.seed,
                                                    args.engine_mb, "cuda")
@@ -2167,6 +2532,7 @@ def main() -> int:
     merge_row, pieces, merge_windows = run_pieces(args.seed, "cuda")
     rows.append(merge_row)
     paths = dict(stream=stream, engine=engine, resident=resident,
+                 single=single, formulations=formulations,
                  batch=run_batch(args.seed, "cuda"),
                  corpus=run_corpus(args.seed, "cuda"),
                  streaming=run_streaming(args.seed, "cuda"),

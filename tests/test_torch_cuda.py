@@ -680,3 +680,126 @@ def test_cuda_tensors_never_reach_the_plain_merge(dev, monkeypatch):
         before = M.merge_rows.launches
         assert eng.encode_ordinary_batch([text])[0] == want
         assert M.merge_rows.launches > before
+
+
+# ---------------------------------------------------------------------------
+# The rest of ops/pretokenize, the plain compactions and run_resident's
+# single-window pipeline on the card
+# ---------------------------------------------------------------------------
+
+
+def _cp_windows(seed: int, n: int):
+    """(2, n) int32 codepoints of seeded multi-script text (one window
+    full, one cut short) with random codepoints beyond, and the counts."""
+    rng = np.random.default_rng(seed)
+    cp = rng.integers(0, 0x110000, (2, n)).astype(np.int32)
+    m = np.array([n, n - 12345], np.int32)
+    for b in range(2):
+        text = multiscript_text(rng, n + 64)
+        c = np.frombuffer(text.encode("utf-32-le"), np.uint32)[: m[b]]
+        cp[b, : m[b]] = c.astype(np.int32)
+    return torch.from_numpy(cp), torch.from_numpy(m)
+
+
+@pytest.mark.parametrize("profile", PROFILES + ["o999k_unknown"])
+def test_compute_starts_card_equals_char_form(dev, profile):
+    """compute_starts on the card (K1's codepoint entry; for another
+    profile match_lengths and chain_starts in plain torch) against the
+    char form on the CPU, at 64 K chars."""
+    from tokendagger_tpu_torch.unicode_tables import get_two_level_tables
+
+    page_ids, pages = get_two_level_tables()
+    cp, m = _cp_windows(21, 1 << 16)
+    before = BP.piece_starts_chars.launches
+    got = PT.compute_starts(cp.to(dev), m.to(dev), page_ids, pages,
+                            profile=profile)
+    if profile in PROFILES:
+        assert BP.piece_starts_chars.launches == before + 1
+        want = PT.piece_starts(cp, m, page_ids, pages, profile=profile)
+    else:
+        want = PT.chain_starts(PT.match_lengths(cp, m, page_ids, pages,
+                                                profile=profile), m)
+    assert torch.equal(got.cpu(), want)
+    lens = PT.match_lengths(cp.to(dev), m.to(dev), page_ids, pages,
+                            profile=profile)
+    assert torch.equal(PT.chain_starts(lens, m.to(dev)).cpu(), want)
+
+
+def test_sorted_compactions_card_equal_cpu(dev):
+    """The sorted and ASCII decodes, join.compact_piece_keys(_sorted) and
+    finalize_host_sorted on the card equal their CPU runs."""
+    from tokendagger_tpu_torch.ops import fused as FU
+    from tokendagger_tpu_torch.ops import join as J
+
+    n = 1 << 16
+    rng = np.random.default_rng(22)
+    texts = [multiscript_text(rng, n), prose_text(rng, n - 999), "", "x"]
+    by, nb = stage(texts, n, rng)
+    out = {}
+    for d in ("cpu", dev):
+        x, y = torch.from_numpy(by).to(d), torch.from_numpy(nb).to(d)
+        cp, cob, boc, m = PT.utf8_decode_sorted(x, y)
+        st = PT.piece_starts(cp.cpu(), m.cpu(), *_two_level()).to(d)
+        p_cap = 21888
+        keys = J.compact_piece_keys(st, boc, x, y, p_cap)
+        stb = PT.starts_to_bytes(st, cob, x, y)
+        keys_s = J.compact_piece_keys_sorted(stb, x, y, p_cap)
+        rank = torch.where(keys_s[1] % 3 == 0, -1, keys_s[1] * 7)
+        fins = [FU.finalize_host_sorted(*keys_s[:2], rank, keys_s[6], t,
+                                        p_cap=p_cap, untrimmed=u)
+                for t, u in ((n, True), (n // 2, False))]
+        out[str(d)] = [PT.utf8_decode_ascii(x, y), (cp, cob, boc, m), keys,
+                       keys_s] + fins
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert int(out["cpu"][3][6][0]) > 10000        # pieces of window 0
+
+
+def _two_level():
+    from tokendagger_tpu_torch.unicode_tables import get_two_level_tables
+
+    return get_two_level_tables()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(impl="auto"), dict(impl="scatter"), dict(impl="auto", ascii=True),
+    dict(miss_mode="device"), dict(miss_mode="device", join_mode="sort"),
+])
+def test_single_window_resident_on_card(dev, kw):
+    """run_resident(batch=1) on the card: ids equal to the host engine,
+    device stage times, and its kernels launched."""
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, run_resident
+    from tokendagger_tpu_torch.ops import merge as M
+    from torch_port_util import merge_vocab
+
+    kw = dict(kw)
+    rng = np.random.default_rng(23)
+    if kw.pop("ascii", False):
+        corpus = prose_text(rng, 3 * 32768).encode()
+    else:
+        corpus = "".join(prose_text(rng, 2000) + multiscript_text(rng, 400)
+                         for _ in range(48)).encode()
+    ranks, specials = merge_vocab()
+    counters = (PT.utf8_decode_block, BP.piece_starts_chars,
+                CP.compact_by_mask, CP.compact_piece_keys, M.merge_rows)
+    for k in counters:
+        k.launches = 0
+    r = run_resident(ranks, specials, LLAMA4_PATTERN, corpus, window=32768,
+                     n_windows=3, reps=4, device=dev, **kw)
+    n = {k.__name__: k.launches for k in counters}
+    assert r.match_host and r.overflow_windows == 0 and r.batch == 1
+    assert r.starts_impl == "jnp" and r.compact_impl == "sort"
+    assert r.device_ms > 0 and r.overlap is None
+    stages = ({"decode", "starts", "resolve"} if "miss_mode" in kw
+              else {"decode", "starts", "compact", "probe", "finalize"})
+    assert set(r.stage_us) == stages
+    # every run launches K1; the scatter decode K9 and K4 (decode and
+    # finalize_host); resolve_window K2+K3, K4 and the merge (after the
+    # sorted decode, which launches no kernel)
+    assert n["piece_starts_chars"] >= 6
+    if r.impl == "scatter":
+        assert n["utf8_decode_block"] >= 6 and n["compact_by_mask"] >= 12
+    if "miss_mode" in kw:
+        assert n["utf8_decode_block"] == 0 and n["compact_by_mask"] >= 6
+        assert n["compact_piece_keys"] >= 6 and n["merge_rows"] >= 6

@@ -1,7 +1,8 @@
 """The slice as a whole: the port's ``run_resident`` (the batched general
-pipeline and the fused ASCII one) on the CPU, against the host engine and
-against one call of the JAX package's ``run_resident`` (Pallas kernels in
-interpret mode); and the port's profiling helpers."""
+pipeline and the fused ASCII one; the other combinations in
+test_torch_single.py and test_torch_combos.py) on the CPU, against the
+host engine and against one call of the JAX package's ``run_resident``
+(Pallas kernels in interpret mode); and the port's profiling helpers."""
 
 import json
 
@@ -105,16 +106,25 @@ def test_fused_ascii_pipeline_matches_host():
         assert r.overlap["n_batches"] == 4
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(batch=1), "item 12"),
-    (dict(batch=2, impl="sort"), "item 12"),
-    (dict(batch=2, impl="ascii-sort"), "item 12"),
+@pytest.mark.parametrize("kw,text", [
+    (dict(batch=1), "multiscript"),
+    (dict(batch=2, impl="sort"), "multiscript"),
+    (dict(batch=2, impl="ascii-sort"), "ascii"),
 ])
-def test_left_out_combinations_raise(corpus, kw, item):
+def test_left_out_combinations_raise(corpus, kw, text):
+    """The combinations that raised until the single-window pipeline and
+    the other batched stages were ported now run, here with the auto
+    capacity and the chunks probe (the hot-piece route when batched),
+    and equal the host engine."""
     ranks, specials = make_tiny_vocab()
-    with pytest.raises(NotImplementedError, match=item):
-        run_resident(ranks, specials, LLAMA4_PATTERN, corpus, window=W,
-                     n_windows=2, device="cpu", **kw)
+    if text == "ascii":
+        corpus = prose_text(np.random.default_rng(4), 3 * W).encode()
+    r = run_resident(ranks, specials, LLAMA4_PATTERN, corpus, window=W,
+                     n_windows=2, reps=1, cap_bytes_per_piece=0,
+                     probe_impl="chunks", overlap_trial=False, device="cpu",
+                     **kw)
+    assert r.match_host and r.overflow_windows == 0
+    assert r.probe_impl == ("hot" if kw["batch"] > 1 else "chunks")
 
 
 def test_device_miss_mode_and_sort_join_as_the_reference(corpus):

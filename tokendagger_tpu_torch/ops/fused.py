@@ -1,6 +1,7 @@
 """Window-pipeline constants shared by the stages, the trim-aware
-finalize of the device engine's windows, and the window resolver with
-its device merge of the misses (``resolve_window``)."""
+finalize of the device engine's windows (``finalize_host``, kernel K4;
+``finalize_host_sorted``, its plain torch sort form), and the window
+resolver with its device merge of the misses (``resolve_window``)."""
 
 from __future__ import annotations
 
@@ -62,6 +63,51 @@ def finalize_host(start_b, piece_len, rank, n_pieces, trim, *, p_cap: int):
     ms_s, ms_l = compact_by_mask([start_b, piece_len], miss, fill=0)
     return (flat, n_kept, n_pieces, n_kept, consumed, overflow, ms_s, ms_l,
             n_ms)
+
+
+def finalize_host_sorted(start_b, piece_len, rank, n_pieces, trim, *,
+                         p_cap: int, untrimmed: bool = False):
+    """``finalize_host``'s contract with its two compactions (the kept
+    pieces' ids, the miss spans) done by one ``torch.sort`` each, in plain
+    torch: the JAX ``ops/fused.finalize_host_sorted``. Inputs (p_cap,)
+    with scalar counts and trim, or (B, p_cap) with (B,) ones (the trim
+    may stay a python int); outputs in the same shapes.
+
+    ``untrimmed``: the caller guarantees trim >= nbytes (complete
+    windows), so the kept pieces are the live ones in slot order and the
+    flat compaction is the identity: its sort is skipped."""
+    one = start_b.dim() == 1
+    sb, pl, rk = ((x[None] if one else x) for x in (start_b, piece_len,
+                                                     rank))
+    dev = sb.device
+    npc = torch.as_tensor(n_pieces, device=dev).reshape(-1, 1)
+    if isinstance(trim, torch.Tensor):
+        trim = trim.reshape(-1, 1)
+    pslot = torch.arange(p_cap, device=dev)
+    end_b = sb + pl
+    live = pslot < torch.clamp(npc, max=p_cap)
+    kept = live if untrimmed else live & (end_b <= trim)
+    n_kept = kept.sum(dim=1).to(torch.int32)
+    consumed = torch.where(kept, end_b, 0).amax(dim=1).to(torch.int32)
+    overflow = npc[:, 0] > p_cap
+    hit = kept & (rk >= 0)
+    miss = kept & (rk < 0)
+    ids = torch.where(hit, rk, SENTINEL).to(torch.int32)
+    if untrimmed:
+        flat = torch.where(kept, ids, -1)
+    else:
+        _, perm = torch.sort(torch.where(kept, pslot, p_cap + pslot), dim=1)
+        flat = torch.where(pslot < n_kept[:, None],
+                           torch.gather(ids, 1, perm), -1)
+    n_ms = miss.sum(dim=1).to(torch.int32)
+    _, perm = torch.sort(torch.where(miss, pslot, p_cap + pslot), dim=1)
+    in_ms = pslot < n_ms[:, None]
+    ms_s = torch.where(in_ms, torch.gather(sb, 1, perm), 0)
+    ms_l = torch.where(in_ms, torch.gather(pl, 1, perm), 0)
+    out = (flat.to(torch.int32), n_kept, npc[:, 0].to(torch.int32), n_kept,
+           consumed, overflow, ms_s.to(torch.int32), ms_l.to(torch.int32),
+           n_ms)
+    return tuple(o[0] for o in out) if one else out
 
 
 def _exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -231,3 +231,100 @@ def vocab_join(qk0, qk1, qk2, qk3, qlen, vk: torch.Tensor, vlen: torch.Tensor,
     is_query = order >= V
     out[order[is_query] - V] = rank[is_query].to(torch.int32)
     return out.reshape(shape)
+
+
+# ===========================================================================
+# Piece-key compaction in plain torch (the JAX package's XLA forms)
+# ===========================================================================
+
+
+def _mask_words(words, piece_len: torch.Tensor):
+    """Key words (int64 holding uint32 values) with the bytes at and
+    beyond each piece's length zeroed, as int32 (uint32 bits): word j
+    keeps ``clip(len - 4j, 0, 4)`` bytes."""
+    out = []
+    for j, k in enumerate(words):
+        r = torch.clamp(piece_len.to(torch.int64) - 4 * j, 0, 4)
+        out.append(to_i32(k & ((1 << (8 * r)) - 1)))
+    return out
+
+
+def _piece_lengths(start_b, n_pieces, nb, live):
+    """Each piece's length: the next slot's start minus its own, the last
+    live piece ending at ``nb``, 0 on dead slots."""
+    pslot = torch.arange(start_b.shape[-1], device=start_b.device)
+    nxt_start = _shift_left_slots(start_b, 1)
+    end_b = torch.where(pslot == n_pieces - 1, nb, nxt_start)
+    return torch.where(live, end_b - start_b, 0)
+
+
+def compact_piece_keys(starts_char: torch.Tensor, byte_of_char: torch.Tensor,
+                       data: torch.Tensor, nbytes, p_cap: int):
+    """Piece (start_b, piece_len, k0..k3, n_pieces) from char-level start
+    flags by scatters: the JAX ``join.compact_piece_keys``. Shapes (N,)
+    or (B, N) with a scalar or (B,) ``nbytes``; outputs int32 of (p_cap,)
+    or (B, p_cap), key words carrying uint32 bits, and ``n_pieces``.
+
+    Dead slots hold start_b = nbytes, length 0, keys 0. When n_pieces >
+    p_cap every piece past the capacity is written to slot p_cap - 1,
+    several writers to one slot (the reference leaves the winner to XLA):
+    the caller must fall back, and only slots below p_cap - 2 are
+    defined."""
+    from .pretokenize import _batched  # pretokenize imports us (compact)
+
+    d, nb, one = _batched(data, nbytes, column=True)
+    st = starts_char[None] if one else starts_char
+    boc = byte_of_char[None] if one else byte_of_char
+    B, N = d.shape
+    dev = d.device
+    idx = torch.arange(N, device=dev)
+    tgt_b = torch.where(st, boc.to(torch.int64), N)
+    is_start = torch.zeros((B, N + 1), dtype=torch.bool, device=dev)
+    is_start.scatter_(1, tgt_b, True)
+    is_start = is_start[:, :N] & (idx < nb)
+    pid = torch.cumsum(is_start, dim=1) - 1
+    n_pieces = torch.clamp(pid[:, -1:] + 1, min=0)
+    tgt = torch.where(is_start, torch.clamp(pid, max=p_cap - 1), p_cap)
+
+    def comp(vals, fill):
+        out = torch.full((B, p_cap + 1), fill, dtype=torch.int64, device=dev)
+        return out.scatter_(1, tgt, vals.expand(B, N))[:, :p_cap]
+
+    start_b = comp(idx, 0x7FFFFFFF)
+    words = [comp(w, M32) for w in sliding_words(d, nb[:, 0])]
+    live = torch.arange(p_cap, device=dev) < n_pieces
+    piece_len = _piece_lengths(start_b, n_pieces, nb, live)
+    start_b = torch.where(live, start_b, nb)
+    out = (start_b.to(torch.int32), piece_len.to(torch.int32),
+           *_mask_words(words, piece_len), n_pieces[:, 0].to(torch.int32))
+    return tuple(o[0] for o in out) if one else out
+
+
+def compact_piece_keys_sorted(starts_b: torch.Tensor, data: torch.Tensor,
+                              nbytes, p_cap: int):
+    """``compact_piece_keys`` from byte-level start flags by one sort: the
+    JAX ``join.compact_piece_keys_sorted``. The key is a byte's index at a
+    piece start and N + index elsewhere (unique), so the first
+    ``n_pieces`` sorted keys are the starts in order, and the four key
+    words follow the sort's permutation. Every slot is defined, also on
+    overflow. ``p_cap`` is at most N, as in the reference."""
+    from .pretokenize import _batched  # pretokenize imports us (compact)
+
+    d, nb, one = _batched(data, nbytes, column=True)
+    st = starts_b[None] if one else starts_b
+    N = d.shape[1]
+    if p_cap > N:
+        raise ValueError(f"p_cap {p_cap} exceeds the window length {N}")
+    dev = d.device
+    idx = torch.arange(N, device=dev)
+    live_in = st & (idx < nb)
+    n_pieces = live_in.sum(dim=1, keepdim=True)
+    ks, perm = torch.sort(torch.where(live_in, idx, N + idx), dim=1)
+    ks, perm = ks[:, :p_cap], perm[:, :p_cap]
+    live = torch.arange(p_cap, device=dev) < torch.clamp(n_pieces, max=p_cap)
+    start_b = torch.where(live, ks, nb)
+    piece_len = _piece_lengths(start_b, n_pieces, nb, live)
+    words = [torch.gather(w, 1, perm) for w in sliding_words(d, nb[:, 0])]
+    out = (start_b.to(torch.int32), piece_len.to(torch.int32),
+           *_mask_words(words, piece_len), n_pieces[:, 0].to(torch.int32))
+    return tuple(o[0] for o in out) if one else out

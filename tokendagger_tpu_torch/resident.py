@@ -2,22 +2,37 @@
 ``resident.run_resident`` on the card.
 
 ``run_resident`` stages ``n_windows`` char-aligned windows of a corpus on
-the device, runs one batch of ``batch`` of them through the pipeline
-``reps`` times, and reports the device time of each stage, the wall rate,
-the piece count and whether the ids equal the host engine's. Two of the
-reference's batched pipelines are ported:
+the device, runs them through the pipeline ``reps`` times (one batch of
+``batch`` of them, or with ``batch=1`` one window a repetition, cycling
+through them), and reports the device time of each stage, the wall rate,
+the piece count and whether the ids equal the host engine's. The stages
+are the reference's choices:
 
-* "general" (any UTF-8; ``impl="auto"`` takes it when a window holds a
-  multi-byte char): the decode ``pretokenize.utf8_decode_tiles`` (K9,
+* "general" (``batch > 1``; ``impl="auto"`` takes it when a window holds
+  a multi-byte char): the decode ``pretokenize.utf8_decode_tiles`` (K9,
   K5+K6), the piece starts ``bitplane.piece_starts_chars`` (K1, or with
   the hot codepoints K5+K6, K7+K8 and K1's class-word entry), the
   char-to-byte expansion ``pretokenize.expand_starts_replay`` (K7+K8),
   the piece keys ``compact.compact_piece_keys`` (K2+K3), the probe
   (``join.vocab_probe8``, or ``join.vocab_probe_hot`` with K5+K6 and
   K7+K8) and ``compact.finalize`` (K4);
-* the fused ASCII pipeline (``impl="ascii-sort"``, ``starts_impl=
-  "bits-pallas"``, ``compact_impl="butterfly"``): the stages of
-  ``ResidentStream.pipeline``.
+* the fused ASCII pipeline (``batch > 1``, ``impl="ascii-sort"``,
+  ``starts_impl="bits-pallas"``, ``compact_impl="butterfly"``): the
+  stages of ``ResidentStream.pipeline``;
+* every other combination, and ``batch=1``: the decode by ``impl``
+  ("ascii-sort" ``utf8_decode_ascii``, "sort" ``utf8_decode_sorted``, else
+  ``utf8_decode``: K9 and K4), the starts (``batch=1``:
+  ``pretokenize.compute_starts``, K1 on a card; batched: "bits" and
+  "bits-pallas" K1's codepoint entry, else the char form
+  ``pretokenize.piece_starts``), the keys (``compact_impl="butterfly"``
+  K2+K3; else by ``impl``: ``join.compact_piece_keys_sorted``, after
+  ``starts_to_bytes`` for "sort", or ``join.compact_piece_keys``), the
+  probe and the finalize (butterfly ``compact.finalize``; sorted
+  ``fused.finalize_host_sorted``; else ``fused.finalize_host``, K4).
+  ``batch=1`` with ``miss_mode="device"`` resolves the window instead
+  (``fused.resolve_window``: K2+K3, the probe or sort join, K4 buckets and
+  the merge kernel). ``batch=1`` reports ``starts_impl="jnp"`` and
+  ``compact_impl="sort"``, as the reference does.
 
 The host side is the reference's: the windowing and char alignment, the
 auto piece capacity from exact host piece counts, the hot piece and hot
@@ -43,13 +58,23 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
-from .convert import tables_from_ranks
+from .convert import merge_tables_from_ranks, tables_from_ranks
 from .hostengine import HostEngine, byte_pair_merge
 from .ops.bitplane import piece_starts_bits, piece_starts_chars
 from .ops.compact import compact_piece_keys, finalize
-from .ops.fused import SENTINEL, caps_for
-from .ops.join import piece_key_words, vocab_probe8, vocab_probe_hot
-from .ops.pretokenize import expand_starts_replay, utf8_decode_tiles
+from .ops.fused import (
+    SENTINEL, caps_for, finalize_host, finalize_host_sorted, resolve_window,
+)
+from .ops.join import compact_piece_keys as join_compact_piece_keys
+from .ops.join import (
+    compact_piece_keys_sorted, piece_key_words, vocab_probe8,
+    vocab_probe_hot,
+)
+from .ops.pretokenize import (
+    compute_starts, expand_starts_replay, piece_starts, starts_to_bytes,
+    utf8_decode, utf8_decode_ascii, utf8_decode_sorted, utf8_decode_tiles,
+)
+from .unicode_tables import get_two_level_tables
 from .utils.windows import char_align
 
 
@@ -81,11 +106,6 @@ class ResidentResult:
 
     def to_dict(self):
         return asdict(self)
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"run_resident: {what} is not ported (ROADMAP queue 1 item {item})")
 
 
 def _hot_pieces(h_sizer, win_bytes, ranks_dict, p_tight):
@@ -170,7 +190,7 @@ def run_resident(
     reps: int = 32,
     trials: int = 1,  # the reference's signature; one trial only
     verify: bool = True,
-    join_mode: str = "probe",  # read by the batch=1 pipeline only
+    join_mode: str = "probe",  # read under miss_mode="device"
     miss_mode: str = "host",
     batch: int = 1,
     impl: str = "auto",
@@ -182,20 +202,19 @@ def run_resident(
     profile: str = "llama4",
     device: str | torch.device = "cuda",
 ) -> ResidentResult:
-    """Run the batched device pipeline over windows of ``corpus`` and
-    return a ``ResidentResult`` (see the module doc). Arguments are the
+    """Run the device pipeline over windows of ``corpus`` and return a
+    ``ResidentResult`` (see the module doc). Arguments are the
     reference's plus ``device``: the card by default (raises without
     one), ``"cpu"`` for the kernels' plain versions.
 
-    Ported: ``batch > 1`` with ``impl`` "general" (or "auto" on multi-byte
-    windows), and the fused ASCII pipeline. ``cap_bytes_per_piece`` 0
-    sizes the piece slots from exact host piece counts, and with
-    ``probe_impl="chunks"`` routes the hot pieces (and on the general
-    pipeline, windows a multiple of 32768, the hot codepoints).
-    As in the reference, ``batch > 1`` requires ``miss_mode="host"``
-    (ValueError otherwise), and ``join_mode`` is read only by the
-    ``batch=1`` pipeline (not ported: ROADMAP queue 1 item 12), so the
-    batched pipelines probe whatever it says."""
+    ``cap_bytes_per_piece`` 0 sizes the piece slots from exact host piece
+    counts, and with ``batch > 1``, ``probe_impl="chunks"`` and
+    ``miss_mode="host"`` routes the hot pieces (and on the general
+    pipeline, windows a multiple of 32768, the hot codepoints). As in the
+    reference, ``batch > 1`` requires ``miss_mode="host"`` (ValueError
+    otherwise), ``join_mode`` is read only by the single-window pipeline
+    under ``miss_mode="device"``, and any other ``miss_mode`` reports the
+    probe as "barrier"."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but CUDA is not available")
@@ -206,7 +225,10 @@ def run_resident(
     if trials != 1:
         raise ValueError("run_resident runs one trial (the reference "
                          "ignores trials)")
+    if miss_mode != "host":
+        probe_impl = "barrier"  # resolve_window has one probe
     on_card = dev.type == "cuda"
+    batched = batch > 1
     N = window
 
     # ---- staging: char-aligned windows (resident.py:143-173) -----------
@@ -225,25 +247,23 @@ def run_resident(
         bufs.append(buf)
 
     if impl == "auto":
-        if all_ascii:
+        if all_ascii and miss_mode == "host":
             impl = "ascii-sort"
-        elif batch > 1:
+        elif batched and miss_mode == "host":
             impl = "general"
         else:
             impl = "sort"
     if impl == "general":
         starts_impl = "bits-pallas"
         compact_impl = "butterfly"
-    if batch <= 1:
-        raise _not_ported("the single-window pipeline (batch=1)", 12)
-    if compact_impl == "butterfly" and impl not in ("ascii-sort", "general"):
+    if batched and compact_impl == "butterfly" and impl not in (
+            "ascii-sort", "general"):
         compact_impl = "sort"
-    fused_ascii = (impl == "ascii-sort" and starts_impl == "bits-pallas"
-                   and compact_impl == "butterfly")
-    if impl != "general" and not fused_ascii:
-        raise _not_ported(
-            f"impl={impl!r} with starts_impl={starts_impl!r}, "
-            f"compact_impl={compact_impl!r}", 12)
+    # the batched pipelines built from K2+K3 and compact.finalize
+    butterfly = batched and compact_impl == "butterfly"
+    general = batched and impl == "general"
+    fused_ascii = (butterfly and impl == "ascii-sort"
+                   and starts_impl == "bits-pallas")
 
     # ---- capacities (resident.py:175-263) ------------------------------
     cap_auto = not cap_bytes_per_piece
@@ -254,7 +274,7 @@ def run_resident(
                           for b in win_bytes), default=1)
         p_tight = max(512, -(-int(max_pieces * 1.02 + 8) // 128) * 128)
         cap_bytes_per_piece = round(N / p_tight, 2)
-        if probe_impl == "chunks":
+        if batched and probe_impl == "chunks" and miss_mode == "host":
             probe_hot_cfg, p_tight = _hot_pieces(h_sizer, win_bytes,
                                                  dict(ranks), p_tight)
             if probe_hot_cfg is not None:
@@ -266,13 +286,18 @@ def run_resident(
 
     hot_cps = u_cap = None
     c_cap = N
-    if impl == "general":
+    if general:
         c_cap = _char_capacity(N, max_chars, cap_auto)
         if cap_auto and N % 32768 == 0:
             hot_cps, u_cap, c_cap = _hot_codepoints(win_bytes, N, c_cap)
 
     tables = tables_from_ranks(ranks, device=dev)
     rows, vmask = tables.vhash8_rows, tables.vhash8_mask
+    page_ids, pages = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                       for a in get_two_level_tables())
+    contractions = profile != "nocontract"
+    mt = (merge_tables_from_ranks(ranks, device=dev)
+          if miss_mode != "host" else None)
 
     def probe(k0, k1, k2, k3, pl):
         """rank, and the hot route's overflow flags (or None)."""
@@ -284,14 +309,51 @@ def run_resident(
             hot_ranks=probe_hot_cfg["hot_ranks"],
             u_cap=probe_hot_cfg["u_cap"])
 
+    # ---- the reference's stage choices (resident.py:344-365, 396-609) --
+    def decode(d, nb):
+        if impl == "ascii-sort":
+            return utf8_decode_ascii(d, nb)
+        if impl == "sort":
+            return utf8_decode_sorted(d, nb)
+        return utf8_decode(d, nb)
+
+    def starts_of(cp, m):
+        if not batched:
+            return compute_starts(cp, m, page_ids, pages,
+                                  contractions=contractions, profile=profile)
+        if starts_impl in ("bits", "bits-pallas"):
+            return piece_starts_chars(cp, m, profile=profile)
+        return piece_starts(cp, m, page_ids, pages,
+                            contractions=contractions, profile=profile)
+
+    def compact_of(st, cob, boc, d, nb):
+        if butterfly:
+            return compact_piece_keys(st, d, nb, p_cap)
+        if impl == "ascii-sort":
+            return compact_piece_keys_sorted(st, d, nb, p_cap)
+        if impl == "sort":
+            return compact_piece_keys_sorted(
+                starts_to_bytes(st, cob, d, nb), d, nb, p_cap)
+        return join_compact_piece_keys(st, boc, d, nb, p_cap)
+
+    def finalize_of(sb, pl, rank, npc):
+        if butterfly:
+            return finalize(sb, pl, rank, npc, p_cap=p_cap)
+        if impl in ("ascii-sort", "sort"):
+            # complete windows: the kept pieces are the live ones
+            return finalize_host_sorted(sb, pl, rank, npc, N, p_cap=p_cap,
+                                        untrimmed=True)
+        return finalize_host(sb, pl, rank, npc, N, p_cap=p_cap)
+
     def no_tick(name: str) -> None:
         pass
 
     def pipeline(d, nb, tick=no_tick):
-        """One batch through the stages; ``tick(stage)`` after each.
-        Returns finalize's 9-tuple with every overflow ORed into [5]."""
+        """One batch (a (1, N) window when batch=1) through the stages;
+        ``tick(stage)`` after each. Returns finalize's 9-tuple with every
+        overflow ORed into [5]."""
         flags = []
-        if impl == "general":
+        if general:
             cp, lead, m, route = utf8_decode_tiles(d, nb, c_cap=c_cap)
             tick("decode")
             if hot_cps is not None:
@@ -304,15 +366,29 @@ def run_resident(
             starts = expand_starts_replay(st_c, lead, route)
             tick("expand")
             keys = compact_piece_keys(starts, d, nb, p_cap)
-        else:
+        elif fused_ascii:
             words = piece_starts_bits(d, nb, profile=profile)
             tick("starts")
             keys = compact_piece_keys(words, d, nb, p_cap, packed=True)
+        else:
+            cp, cob, boc, m = decode(d, nb)
+            tick("decode")
+            starts = starts_of(cp, m)
+            tick("starts")
+            if miss_mode != "host":
+                out = resolve_window(
+                    starts, boc, d, nb, N, mt.byte_rank, mt.pair_rows,
+                    mt.pair_lut, mt.vk, mt.vlen, mt.vrank, rows,
+                    mask=mt.pair_mask, vhash_mask=vmask, join_mode=join_mode,
+                    miss_mode=miss_mode, **caps)
+                tick("resolve")
+                return out
+            keys = compact_of(starts, cob, boc, d, nb)
         tick("compact")
         sb, pl, k0, k1, k2, k3, npc = keys
         rank, p_ovf = probe(k0, k1, k2, k3, pl)
         tick("probe")
-        out = finalize(sb, pl, rank, npc, p_cap=p_cap)
+        out = finalize_of(sb, pl, rank, npc)
         tick("finalize")
         if p_ovf is not None:
             flags.append(p_ovf)
@@ -320,11 +396,16 @@ def run_resident(
             out = out[:5] + (out[5] | ovf,) + out[6:]
         return out
 
-    h_stk = torch.from_numpy(np.stack([bufs[i % n_windows]
-                                       for i in range(batch)]))
-    h_nb = torch.tensor([len(win_bytes[i % n_windows]) for i in range(batch)],
-                        dtype=torch.int32)
-    stk_dev, stk_nb = h_stk.to(dev), h_nb.to(dev)
+    # every window on the device before timing: one batch of ``batch``
+    # windows, or each window alone, cycled through (resident.py:701)
+    if batched:
+        sel = [[i % n_windows for i in range(batch)]]
+    else:
+        sel = [[w] for w in range(n_windows)]
+    h_wins = [(torch.from_numpy(np.stack([bufs[i] for i in ix])),
+               torch.tensor([len(win_bytes[i]) for i in ix],
+                            dtype=torch.int32)) for ix in sel]
+    wins = [(d.to(dev), nb.to(dev)) for d, nb in h_wins]
 
     def sync():
         if on_card:
@@ -343,7 +424,7 @@ def run_resident(
     # warm-up: builds the kernels, fills the allocator's pools; then a
     # collection, so that the host clocks below do not pay for the
     # staging's garbage (the hot-piece count makes millions of objects)
-    pipeline(stk_dev, stk_nb)
+    pipeline(*wins[0])
     sync()
     gc.collect()
 
@@ -357,12 +438,13 @@ def run_resident(
 
     t0 = time.perf_counter()
     last = None
-    for _ in range(reps):
+    for r in range(reps):
+        d, nb = wins[r % len(wins)]
         if on_card:
             tick("")
-            last = pipeline(stk_dev, stk_nb, tick)
+            last = pipeline(d, nb, tick)
         else:
-            last = pipeline(stk_dev, stk_nb)
+            last = pipeline(d, nb)
     total_tokens = int(last[1].sum())   # the one read that drains the queue
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
     overflow_windows = int(last[5].sum())
@@ -375,22 +457,23 @@ def run_resident(
 
     # ---- H2D/compute overlap trial (resident.py:728-778) ----------------
     overlap_stats = None
-    if overlap_trial:
+    if batched and overlap_trial:
         overlap_stats = _overlap_trial(pipeline, bufs, win_bytes, batch,
                                        n_windows, N, dev)
 
     match = True
     if verify:
-        out = [o.cpu().numpy() for o in pipeline(stk_dev, stk_nb)]
+        out = [o.cpu().numpy() for o in pipeline(*wins[0])]
+        h_stk, h_nb = h_wins[0]
         host = HostEngine(pattern, ranks, specials)
         rdict = dict(ranks)
         match = all(
             _check_window(tuple(o[b] for o in out),
                           h_stk[b, : int(h_nb[b])].numpy().tobytes(), host,
                           rdict)
-            for b in range(batch))
+            for b in range(len(h_nb)))
 
-    per_batch_bytes = N * batch
+    per_batch_bytes = N * max(batch, 1)
     return ResidentResult(
         window_bytes=N,
         n_windows=n_windows,
@@ -404,10 +487,10 @@ def run_resident(
         wall_mbps=round(per_batch_bytes / 1e6 / (wall_ms / 1e3), 2),
         total_tokens=total_tokens,
         match_host=match,
-        batch=batch,
+        batch=max(batch, 1),
         impl=impl,
-        starts_impl=starts_impl,
-        compact_impl=compact_impl,
+        starts_impl=starts_impl if batched else "jnp",
+        compact_impl=compact_impl if batched else "sort",
         probe_impl="hot" if probe_hot_cfg is not None else probe_impl,
         cap_bpp=cap_bytes_per_piece,
         overlap=overlap_stats,

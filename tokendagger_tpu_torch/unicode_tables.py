@@ -16,6 +16,8 @@ Bit layout (uint8):
   UC      0x10  [\\p{Lu}\\p{Lt}\\p{Lm}\\p{Lo}\\p{M}]  ("uppercase-ish" word class)
   LC      0x20  [\\p{Ll}\\p{Lm}\\p{Lo}\\p{M}]          ("lowercase-ish" word class)
 
+``get_two_level_tables()`` compresses it into 256-codepoint pages, the
+form the char-per-element functions of ``ops/pretokenize`` take.
 ``char_class_words(profile)`` widens that table into the 13-bit class word
 per codepoint that the piece-start kernel (K1) reads for general text.
 """
@@ -52,6 +54,24 @@ def get_tables() -> tuple[np.ndarray, dict[str, np.ndarray]]:
         folds = {L: z[f"fold_{L}"] for L in _CONTRACTION_LETTERS}
     classes.setflags(write=False)
     return classes, folds
+
+
+@lru_cache(maxsize=1)
+def get_two_level_tables() -> tuple[np.ndarray, np.ndarray]:
+    """Page-compressed class table: (page_ids (0x1100,) uint8 or uint16,
+    pages (n_pages, 256) uint8) with ``classes[cp] ==
+    pages[page_ids[cp >> 8], cp & 0xFF]``, the distinct pages in sorted
+    order. The char-form functions of ``ops/pretokenize`` take the pair,
+    as the JAX package's do."""
+    classes, _ = get_tables()
+    pages, inverse = np.unique(classes.reshape(-1, 256), axis=0,
+                               return_inverse=True)
+    dtype = np.uint8 if len(pages) < 256 else np.uint16
+    page_ids = inverse.reshape(-1).astype(dtype)
+    page_ids.setflags(write=False)
+    pages = pages.astype(np.uint8)
+    pages.setflags(write=False)
+    return page_ids, pages
 
 
 # Bit order of the class word K1 reads (csrc/starts_derive.cuh, B_WS ..
