@@ -62,7 +62,12 @@
    once with the auto capacity (both hot routes: hot codepoints and hot
    pieces). Each run's ids must equal the host engine's with no overflow,
    and every kernel of the path must have launched. Prints each run's
-   kernel_mbps, device_ms, stage_us, wall_mbps and overlap dict. Then
+   kernel_mbps, device_ms, wall_mbps and overlap dict, and its device
+   stage times (kernel, copy and memset durations summed per stage from
+   run_resident's profiler trace) beside its CUDA-event stage times,
+   with the trace's kernel events against the wrappers' launches: a
+   trace that lost a kernel event fails the run (here and in every
+   run_resident call below). Then
    holds K5+K6 (compact_record), K7+K8 (expand_route) and K1's class-word
    entry (all four profiles) against their plain versions on the inputs
    the auto run gave them at each of the path's shapes (the decode, the
@@ -136,7 +141,22 @@
    * "streaming": StreamingEncoder fed 4 MB of multi-script text with
      specials in seeded chunks of 1 B-64 KB; the ids must equal one
      encode and the host engine's; prints the wall rate.
-10. Prints a "kernels" JSON line, then the card's name and power limit, and
+10. The host backend and "auto" (run last, as the paths "host" and "auto"):
+   * "host": Tokenizer(backend="host") must run the native C++ engine
+     (built by g++ at first use; the run fails on the pure-Python
+     fallback) and prints which binding loaded. Over step 5's 12.6 MB
+     text with specials (the one-call encode) and the batch path's 10,008
+     texts (encode_batch with specials, encode_ordinary_batch) at 1, 4
+     and all cores, then encode and decode as routed: every id equal to
+     HostEngine's, whose rate is printed beside the native rates;
+   * "auto": one text with specials and encode_batch over the batch
+     texts at 16 KB to 16 MB, through the native engine and DeviceEngine
+     (walls in turns, the best of two each) and through an "auto"
+     Tokenizer: prints the dispatch probe, both walls and the crossover,
+     checks that auto chose as its constants say (_DEVICE_MIN_BYTES,
+     _DEVICE_AUTO_MIN_BYTES, _DEVICE_HEALTHY_MS) and that every id equals
+     the host engine's.
+11. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
 
@@ -876,6 +896,15 @@ def first_diff(a: list, b: list) -> int:
                 min(len(a), len(b)))
 
 
+@functools.lru_cache(maxsize=1)
+def engine_texts(seed: int, mb: int) -> tuple[str, str]:
+    """The engine phase's >= mb MB of multi-script text, and the same with
+    specials sprinkled over its last third."""
+    plain_text = multiscript(mb << 20, seed + 5)
+    return plain_text, with_specials(plain_text, seed + 6,
+                                     start=2 * len(plain_text) // 3)
+
+
 def run_engine(seed: int, mb: int, dev, *,
                n_ranks=200_000) -> tuple[dict, dict, dict]:
     """Tokenizer(backend="device") over >= mb MB of multi-script text with
@@ -890,8 +919,7 @@ def run_engine(seed: int, mb: int, dev, *,
     ranks = standin_vocab(n_ranks, seed, extra=multiscript(1 << 20,
                                                           seed + 4))
     specials = {s: n_ranks + i for i, s in enumerate(SPECIALS)}
-    plain_text = multiscript(mb << 20, seed + 5)
-    text = with_specials(plain_text, seed + 6, start=2 * len(plain_text) // 3)
+    plain_text, text = engine_texts(seed, mb)
     nbytes = len(text.encode())
     tok = Tokenizer("standin", pat_str=LLAMA4_PATTERN, mergeable_ranks=ranks,
                     special_tokens=specials, device=dev)
@@ -1231,8 +1259,8 @@ def run_resident_phase(seed: int, dev, *, reps: int = 20,
               f"total_tokens {r.total_tokens}, {time.perf_counter() - t:.1f} s")
         print(f"resident {label}: kernel_mbps {r.kernel_mbps}, device_ms "
               f"{r.device_ms}, wall_mbps {r.wall_mbps} (wall_ms {r.wall_ms}, "
-              f"calibration_ms {r.calibration_ms}), stage_us "
-              f"{json.dumps(r.stage_us)}")
+              f"calibration_ms {r.calibration_ms})")
+        show_trace(f"resident {label}", r)
         print(f"resident {label}: overlap {json.dumps(r.overlap)}")
         print(f"resident {label}: launches {json.dumps(run)}")
         if not (r.match_host and r.overflow_windows == 0
@@ -1721,16 +1749,19 @@ def batch_texts(seed: int, n: int = 10_000) -> list[str]:
     return texts
 
 
-def engine_tokenizer(seed: int, dev, n_ranks=200_000):
+def engine_tokenizer(seed: int, dev, n_ranks=200_000, *,
+                     backend: str = "device", tables=None):
     """The engine phase's tokenizer (its stand-in vocabulary and
-    SPECIALS) on ``dev``, and a host engine over the same."""
+    SPECIALS) on ``dev`` with ``backend``, and a host engine over the
+    same."""
     from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine, Tokenizer
 
     ranks = standin_vocab(n_ranks, seed, extra=multiscript(1 << 20,
                                                           seed + 4))
     specials = {s: n_ranks + i for i, s in enumerate(SPECIALS)}
     tok = Tokenizer("standin", pat_str=LLAMA4_PATTERN, mergeable_ranks=ranks,
-                    special_tokens=specials, backend="device", device=dev)
+                    special_tokens=specials, backend=backend, device=dev,
+                    tables=tables)
     return tok, HostEngine(LLAMA4_PATTERN, ranks, specials), specials
 
 
@@ -1940,6 +1971,285 @@ def run_streaming(seed: int, dev) -> dict:
                              f"{first_diff(ids, want)}")
     print(f"streaming ids equal one encode and the host engine "
           f"({len(ids)} ids)")
+    return launches
+
+
+# ===========================================================================
+# The host backend (the native engine) and "auto"'s routing
+# ===========================================================================
+
+
+@functools.lru_cache(maxsize=1)
+def host_inputs(seed: int, mb: int):
+    """The engine phase's text (>= mb MB with specials) and the batch
+    phase's 10,008 texts, with the host engine's ids of each (full allowed
+    set; the batch texts also ordinary) and the host engine's walls."""
+    tok, host, specials = engine_tokenizer(seed, "cpu")
+    text = engine_texts(seed, mb)[1]
+    texts = batch_texts(seed + 30)
+    allowed = set(specials)
+    t = time.perf_counter()
+    want = host.encode(text, allowed)[0]
+    text_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want_b = [host.encode(x, allowed)[0] for x in texts]
+    batch_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want_o = [host.encode_ordinary(x) for x in texts]
+    ordinary_s = time.perf_counter() - t
+    return dict(text=text, texts=texts, want=want, want_b=want_b,
+                want_o=want_o, walls=dict(text=text_s, batch=batch_s,
+                                          ordinary=ordinary_s))
+
+
+def run_host(seed: int, mb: int) -> dict:
+    """Tokenizer(backend="host"), the native C++ engine, over the engine
+    phase's text and the batch phase's texts at 1, 4 and all cores: the
+    one-call encode with specials, encode_batch with specials and
+    encode_ordinary_batch, then encode and decode as routed. Every id
+    must equal the host engine's (HostEngine, pure Python), whose rate is
+    printed beside; the native engine must be built (no Python
+    fallback). Returns the kernels' launches (none: the path is host
+    only)."""
+    import os
+
+    from tokendagger_tpu_torch import native
+
+    t = time.perf_counter()
+    built = native.binding()        # g++ at first use (both libraries)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tok = engine_tokenizer(seed, "cuda", backend="host")[0]
+    eng = tok._get_native()
+    hi = host_inputs(seed, mb)
+    text, texts = hi["text"], hi["texts"]
+    data = text.encode()
+    nbytes = len(data)
+    bbytes = sum(len(x.encode()) for x in texts)
+    print(f"host: binding {tok.host_binding} (process: {built}; g++ "
+          f"{build_s:.1f} s), "
+          f"os.cpu_count {os.cpu_count()}, usable cores "
+          f"{len(os.sched_getaffinity(0))}; set-up "
+          f"{time.perf_counter() - t:.1f} s")
+    if tok.host_binding == "python" or eng is None:
+        raise AssertionError("host: the native engine did not build")
+    w = hi["walls"]
+    print(f"host HostEngine (pure Python): text {nbytes} B "
+          f"{nbytes / 1e6 / w['text']:.2f} MB/s; batch {len(texts)} texts "
+          f"{bbytes} B with specials {bbytes / 1e6 / w['batch']:.2f} MB/s, "
+          f"ordinary {bbytes / 1e6 / w['ordinary']:.2f} MB/s")
+    allowed = set(tok._special_tokens)
+
+    def check(what, got, want):
+        if got != want:
+            bad = (first_diff(got, want) if isinstance(got[0], int) else
+                   next(i for i, (a, b) in enumerate(zip(got, want))
+                        if a != b))
+            raise AssertionError(f"host {what}: ids differ from the host "
+                                 f"engine at {bad}")
+
+    counters = engine_counters()
+
+    def drive():
+        rates = {}
+        for n in sorted({1, 4, os.cpu_count()}):
+            runs = (
+                ("text", nbytes, hi["want"],
+                 lambda: eng.encode_with_specials(data, num_threads=n)),
+                ("batch", bbytes, hi["want_b"],
+                 lambda: tok.encode_batch(texts, num_threads=n,
+                                          allowed_special="all")),
+                ("ordinary batch", bbytes, hi["want_o"],
+                 lambda: tok.encode_ordinary_batch(texts, num_threads=n)))
+            for what, nb, want, fn in runs:
+                walls = []
+                for _ in range(2):
+                    t = time.perf_counter()
+                    got = fn()
+                    walls.append(time.perf_counter() - t)
+                    check(f"{what} at {n} threads", got, want)
+                rates[(what, n)] = nb / 1e6 / min(walls)
+        t = time.perf_counter()
+        ids = tok.encode(text, allowed_special="all")
+        enc_s = time.perf_counter() - t
+        check("encode", ids, hi["want"])
+        t = time.perf_counter()
+        back = tok.decode(ids)
+        dec_s = time.perf_counter() - t
+        if back != text:
+            raise AssertionError("host: decode(encode(text)) != text")
+        return rates, enc_s, dec_s, len(ids)
+
+    (rates, enc_s, dec_s, n_ids), wall, launches = count_runs(counters, drive)
+    for what, base in (("text", w["text"] / nbytes),
+                       ("batch", w["batch"] / bbytes),
+                       ("ordinary batch", w["ordinary"] / bbytes)):
+        py = 1 / base / 1e6
+        print(f"host native {what}: " + ", ".join(
+            f"{n} threads {r:.2f} MB/s ({r / py:.1f}x HostEngine)"
+            for (k, n), r in rates.items() if k == what))
+    print(f"host encode (routed, {tok._effective_threads(8)} threads): "
+          f"{nbytes / 1e6 / enc_s:.2f} MB/s; decode of {n_ids} ids "
+          f"{nbytes / 1e6 / dec_s:.2f} MB/s out; every id equals the host "
+          f"engine's; phase {wall:.1f} s; launches {json.dumps(launches)}")
+    return launches
+
+
+AUTO_SIZES = (1 << 10, 4 << 10, 16 << 10, 64 << 10, 256 << 10, 1 << 20,
+              4 << 20, 16 << 20)
+AUTO_HOST_MAX = 1 << 20     # HostEngine is timed on batches up to this
+
+
+def _prefix(text: str, nbytes: int) -> str:
+    return text.encode()[:nbytes].decode("utf-8", errors="ignore")
+
+
+def _batch_of(texts: list[str], wants: list, nbytes: int):
+    """The first of ``texts`` (cycled) that hold ``nbytes`` bytes, and
+    their ids."""
+    out, ids, size, i = [], [], 0, 0
+    while size < nbytes:
+        x = texts[i % len(texts)]
+        out.append(x)
+        ids.append(wants[i % len(texts)])
+        size += len(x.encode())
+        i += 1
+    return out, ids, size
+
+
+def _crossover(sizes, fast, slow) -> int | None:
+    """The smallest size from which ``fast`` beats ``slow`` at every
+    larger size measured (None if it does not at the largest)."""
+    cross = None
+    for n, f, s in zip(sizes, fast, slow):
+        if s is None:
+            continue
+        cross = (cross or n) if f < s else None
+    return cross
+
+
+def run_auto(seed: int, mb: int, dev) -> dict:
+    """"auto"'s routing on the card, at 1 KB to 16 MB: one text with
+    specials (encode), encode_batch with specials and
+    encode_ordinary_batch over the batch texts, each through the native
+    engine (Tokenizer(backend="host")) and DeviceEngine
+    (backend="device"), walls in turns (native, device, device, native;
+    the best of each), beside HostEngine's wall (one text at every size,
+    the batches up to 1 MB). Prints the dispatch probe, the walls and the
+    crossovers (the smallest size from which the device is faster than
+    the native engine, and than HostEngine), and checks that an "auto"
+    Tokenizer chooses as its constants say and that its ids, and the
+    other two's, equal the host engine's. Returns the kernels' launches
+    (the device runs)."""
+    from tokendagger_tpu_torch import Tokenizer
+
+    t = time.perf_counter()
+    dtok, host, specials = engine_tokenizer(seed, dev)
+    if dtok._get_native() is None:
+        raise AssertionError("auto: the native engine did not build")
+    ntok = engine_tokenizer(seed, dev, backend="host")[0]
+    atok = engine_tokenizer(seed, dev, backend="auto",
+                            tables=dtok._get_device().tables)[0]
+    hi = host_inputs(seed, mb)
+    allowed = set(specials)
+    src = hi["text"] + multiscript(max(AUTO_SIZES), seed + 41)
+    probe_ms = atok._device_dispatch_ms()
+    warm = _prefix(src, 1 << 16)
+    for tk in (ntok, dtok, atok):      # builds the engines, outside walls
+        tk.encode(warm, allowed_special="all")
+        tk.encode_batch(hi["texts"][:64], allowed_special="all")
+    print(f"auto: dispatch probe {probe_ms:.4f} ms; constants "
+          f"_DEVICE_MIN_BYTES {Tokenizer._DEVICE_MIN_BYTES}, "
+          f"_DEVICE_AUTO_MIN_BYTES {Tokenizer._DEVICE_AUTO_MIN_BYTES}, "
+          f"_DEVICE_HEALTHY_MS {Tokenizer._DEVICE_HEALTHY_MS}; set-up "
+          f"{time.perf_counter() - t:.1f} s")
+    counters = engine_counters()
+    kinds = ("text", "batch", "ordinary batch")
+
+    def calls(kind, size):
+        """(callables by tokenizer, the host engine's ids and wall (s, or
+        None), bytes)."""
+        if kind == "text":
+            x = _prefix(src, size)
+            t = time.perf_counter()
+            want = host.encode(x, allowed)[0]
+            host_s = time.perf_counter() - t
+            return ({tk: functools.partial(tk.encode, x,
+                                           allowed_special="all")
+                     for tk in (ntok, dtok, atok)}, want, host_s,
+                    len(x.encode()))
+        ordinary = kind == "ordinary batch"
+        xs, want, nb = _batch_of(
+            hi["texts"], hi["want_o" if ordinary else "want_b"], size)
+        host_s = None
+        if nb <= AUTO_HOST_MAX:
+            t = time.perf_counter()
+            for x in xs:
+                (host.encode_ordinary(x) if ordinary
+                 else host.encode(x, allowed))
+            host_s = time.perf_counter() - t
+        if ordinary:
+            return ({tk: functools.partial(tk.encode_ordinary_batch, xs)
+                     for tk in (ntok, dtok, atok)}, want, host_s, nb)
+        return ({tk: functools.partial(tk.encode_batch, xs,
+                                       allowed_special="all")
+                 for tk in (ntok, dtok, atok)}, want, host_s, nb)
+
+    def drive():
+        rows = {}
+        for kind in kinds:
+            for size in AUTO_SIZES:
+                fns, want, host_s, nb = calls(kind, size)
+                walls = {ntok: [], dtok: []}
+                for tk in (ntok, dtok, dtok, ntok):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    got = fns[tk]()
+                    walls[tk].append(time.perf_counter() - t)
+                    if got != want:
+                        raise AssertionError(f"auto {kind} {size}: "
+                                             f"{tk.backend} ids differ from "
+                                             "the host engine")
+                choice = atok._use_device(nb)
+                rule = (nb >= Tokenizer._DEVICE_MIN_BYTES
+                        and nb >= Tokenizer._DEVICE_AUTO_MIN_BYTES
+                        and probe_ms < Tokenizer._DEVICE_HEALTHY_MS)
+                t = time.perf_counter()
+                got = fns[atok]()
+                auto_s = time.perf_counter() - t
+                if got != want or choice != rule:
+                    raise AssertionError(f"auto {kind} {size}: ids differ "
+                                         f"or the choice {choice} breaks "
+                                         f"the rule {rule}")
+                rows[(kind, size)] = (nb, min(walls[ntok]),
+                                      min(walls[dtok]), host_s, choice,
+                                      auto_s)
+        return rows
+
+    rows, wall, launches = count_runs(counters, drive)
+    for kind in kinds:
+        table = [rows[(kind, s)] for s in AUTO_SIZES]
+        for nb, n_s, d_s, h_s, choice, a_s in table:
+            py = (f", HostEngine {h_s * 1e3:.3f} ms "
+                  f"({nb / 1e6 / h_s:.2f} MB/s)" if h_s else "")
+            print(f"auto {kind} {nb} B: native {n_s * 1e3:.3f} ms "
+                  f"({nb / 1e6 / n_s:.2f} MB/s), device {d_s * 1e3:.3f} ms "
+                  f"({nb / 1e6 / d_s:.2f} MB/s){py}; auto chose "
+                  f"{'device' if choice else 'native'} "
+                  f"({a_s * 1e3:.3f} ms)")
+        sizes = [r[0] for r in table]
+        devs = [r[2] for r in table]
+        vs_native = _crossover(sizes, devs, [r[1] for r in table])
+        vs_host = _crossover(sizes, devs, [r[3] for r in table])
+        print(f"auto {kind}: crossover against the native engine "
+              + (f"{vs_native} B" if vs_native else "none up to 16 MB")
+              + "; against HostEngine "
+              + (f"{vs_host} B" if vs_host else "none where measured"))
+    print(f"auto: every id equals the host engine's; phase {wall:.1f} s; "
+          f"launches {json.dumps(launches)}")
+    dead = [n for n in CORPUS_KERNELS if not launches[n]]
+    if dev != "cpu" and dead:
+        raise AssertionError(f"auto: kernels never launched: {dead}")
     return launches
 
 
@@ -2244,8 +2554,27 @@ def show_run(label: str, r, wall_s: float) -> None:
           f"{r.overflow_windows}, total_tokens {r.total_tokens}, "
           f"{wall_s:.1f} s")
     print(f"{label}: kernel_mbps {r.kernel_mbps}, device_ms {r.device_ms}, "
-          f"wall_mbps {r.wall_mbps} (wall_ms {r.wall_ms}), stage_us "
-          f"{json.dumps(r.stage_us)}")
+          f"wall_mbps {r.wall_mbps} (wall_ms {r.wall_ms})")
+    show_trace(label, r)
+
+
+def show_trace(label: str, r, quiet: bool = False) -> None:
+    """A run_resident result's device stage times (summed kernel, copy and
+    memset durations from its profiler trace) beside its CUDA-event stage
+    times, and the trace's kernel events beside the wrappers' launches;
+    fails if the trace lost a kernel event or timed no stage."""
+    if not quiet:
+        print(f"{label}: device stage_us (trace) {json.dumps(r.stage_us)}; "
+              f"event stage_us {json.dumps(r.event_us)}; device_ms "
+              f"{r.device_ms} vs event_ms {r.event_ms}")
+        print(f"{label}: trace kernel events / launches "
+              + json.dumps({k: f"{v['events']}/{v['launches']}"
+                            for k, v in r.trace_kernels.items()})
+              + f", shortfall {json.dumps(r.trace_kernel_shortfall)}")
+    if r.trace_kernel_shortfall or not r.stage_us:
+        raise AssertionError(f"{label}: the profiler trace lost kernel "
+                             f"events or timed no stage: "
+                             f"{r.trace_kernel_shortfall}, {r.stage_us}")
 
 
 def run_single_phase(seed: int, dev, *, reps: int = 20,
@@ -2307,6 +2636,7 @@ def run_single_phase(seed: int, dev, *, reps: int = 20,
                 raise AssertionError(f"single {label}: window {w} alone "
                                      "differs from the host engine or "
                                      "overflowed")
+            show_trace(f"single {label} window {w}", c, quiet=True)
             tokens.append(c.total_tokens)
         print(f"single {label}: each of the {BATCH} windows alone equals "
               f"the host engine, 0 overflowed (tokens {tokens}), "
@@ -2536,7 +2866,9 @@ def main() -> int:
                  batch=run_batch(args.seed, "cuda"),
                  corpus=run_corpus(args.seed, "cuda"),
                  streaming=run_streaming(args.seed, "cuda"),
-                 pieces=pieces, merge_windows=merge_windows)
+                 pieces=pieces, merge_windows=merge_windows,
+                 host=run_host(args.seed, args.engine_mb),
+                 auto=run_auto(args.seed, args.engine_mb, "cuda"))
     for r in rows:
         name = r["name"]
         by_path = {p: v.get(name, 0) for p, v in paths.items()}

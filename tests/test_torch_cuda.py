@@ -803,3 +803,30 @@ def test_single_window_resident_on_card(dev, kw):
     if "miss_mode" in kw:
         assert n["utf8_decode_block"] == 0 and n["compact_by_mask"] >= 6
         assert n["compact_piece_keys"] >= 6 and n["merge_rows"] >= 6
+
+
+@pytest.mark.parametrize("kw", [
+    dict(batch=2, n_windows=2, cap_bytes_per_piece=0, probe_impl="chunks"),
+    dict(impl="auto"), dict(miss_mode="device"),
+])
+def test_resident_device_time_from_trace(dev, kw):
+    """run_resident's stage_us and device_ms come from a profiler trace
+    that holds one kernel event for every launch of each hand-written
+    kernel, and that sum to at most the event time of the same stages
+    (which includes the card's waits for the host)."""
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, run_resident
+    from torch_port_util import merge_vocab
+
+    rng = np.random.default_rng(29)
+    corpus = "".join(prose_text(rng, 2000) + multiscript_text(rng, 400)
+                     for _ in range(48)).encode()
+    ranks, specials = merge_vocab()
+    r = run_resident(ranks, specials, LLAMA4_PATTERN, corpus, window=32768,
+                     reps=4, overlap_trial=False, device=dev,
+                     **{"n_windows": 3, **kw})
+    assert r.match_host and r.overflow_windows == 0
+    assert r.trace_kernels and r.trace_kernel_shortfall == {}
+    for name, c in r.trace_kernels.items():
+        assert c["events"] == c["launches"] > 0, name
+    assert set(r.stage_us) == set(r.event_us)
+    assert 0 < r.device_ms <= r.event_ms

@@ -191,3 +191,73 @@ def test_device_busy_us(tmp_path):
     (tmp_path / "h.1.pt.trace.json").write_text(json.dumps(
         {"traceEvents": ev}))
     assert TPF.device_busy_us(str(tmp_path)) == (10.0, 2)
+
+
+def _trace(tmp_path, events):
+    (tmp_path / "h.1.pt.trace.json").write_text(json.dumps(
+        {"traceEvents": events}))
+    return TPF.trace_events(str(tmp_path))
+
+
+def test_stage_device_us_attributes_through_correlation(tmp_path):
+    """A kernel counts for the range whose thread launched it (runtime
+    call inside the range, joined by correlation), wherever the kernel
+    itself lies in time; copies and memsets count too, the gaps between
+    kernels and the gpu_user_annotation spans do not."""
+    def rng_(name, ts, dur, tid=1):
+        return dict(ph="X", cat="user_annotation", name=name, pid=7,
+                    tid=tid, ts=ts, dur=dur)
+
+    def rt(corr, ts, tid=1, cat="cuda_runtime", name="cudaLaunchKernel"):
+        return dict(ph="X", cat=cat, name=name, pid=7, tid=tid, ts=ts,
+                    dur=1.0, args={"correlation": corr})
+
+    def dev(corr, ts, dur, cat="kernel", name="void k<1>(int)"):
+        return dict(ph="X", cat=cat, name=name, pid=0, tid=7, ts=ts,
+                    dur=dur, args={"correlation": corr})
+
+    events = _trace(tmp_path, [
+        rng_("decode", 0.0, 10.0), rng_("starts", 10.0, 10.0),
+        rng_("probe", 30.0, 5.0), rng_("other", 40.0, 5.0),
+        rng_("compact", 0.0, 100.0, tid=2),
+        rt(1, 2.0), rt(2, 5.0, name="cudaMemcpyAsync"),
+        rt(3, 12.0, cat="cuda_driver", name="cuLaunchKernel"),
+        rt(4, 25.0),                   # between ranges: no stage
+        rt(5, 41.0),                   # a range not asked for
+        rt(6, 50.0, tid=2),            # another thread's range
+        rt(7, 19.0, name="cudaLaunchCooperativeKernel"),
+        dev(1, 100.0, 3.0), dev(2, 104.0, 2.5, cat="gpu_memcpy"),
+        dev(3, 200.0, 4.0), dev(7, 300.0, 1.5, name="void other_k()"),
+        dev(4, 400.0, 9.0), dev(5, 500.0, 9.0), dev(6, 600.0, 6.0),
+        dev(8, 700.0, 9.0),            # no runtime event
+        dict(ph="X", cat="gpu_user_annotation", name="decode", pid=0,
+             tid=7, ts=100.0, dur=200.0),
+        dict(ph="X", cat="gpu_memset", name="Memset", pid=0, tid=7,
+             ts=5.0, dur=0.5, args={"correlation": 9}), rt(9, 31.0),
+    ])
+    got = TPF.stage_device_us(events, ("decode", "starts", "probe",
+                                       "compact", "finalize"))
+    assert got == {"decode": 5.5, "starts": 5.5, "probe": 0.5,
+                   "compact": 6.0}
+    assert TPF.kernel_counts(events, ["k", "other_k", "k<2>", "none"]) == {
+        "k": 6, "other_k": 1, "k<2>": 0, "none": 0}
+    # launched inside the named ranges only: corr 1, 3 and 7
+    assert TPF.kernel_counts(events, ["k", "other_k"], ("decode", "starts")
+                             ) == {"k": 2, "other_k": 1}
+    assert TPF.trace_events(str(tmp_path / "missing")) == []
+
+
+def test_stage_device_us_on_a_cpu_trace(tmp_path):
+    """A CPU trace has the ranges but no device events: 0 per range."""
+    with TPF.profile_trace(str(tmp_path)):
+        with torch.profiler.record_function("decode"):
+            torch.arange(1000).sum()
+    events = TPF.trace_events(str(tmp_path))
+    assert TPF.stage_device_us(events, ("decode", "probe")) == {"decode": 0.0}
+
+
+def test_cpu_run_reports_no_device_or_event_times(corpus):
+    r = _port(corpus, 3.0)
+    assert r.match_host and r.stage_us == {} and r.device_ms == 0.0
+    assert r.event_us == {} and r.event_ms == 0.0
+    assert r.trace_kernels == {} and r.trace_kernel_shortfall == {}

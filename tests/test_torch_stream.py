@@ -89,6 +89,7 @@ def test_port_imports_no_jax():
                 "decode.py", "resident.py", "profiling.py", "merge.py",
                 "fused.py", "join.py"):
         assert new in names, new
+    assert REPO / "tokendagger_tpu_torch" / "native" / "__init__.py" in files
     assert len(files) > 15
     for f in files:
         for mod in _imported_modules(f):
@@ -106,6 +107,7 @@ def test_port_import_loads_no_jax():
             "tokendagger_tpu_torch.ops.merge, "
             "tokendagger_tpu_torch.ops.fused, "
             "tokendagger_tpu_torch.resident, "
+            "tokendagger_tpu_torch.native, "
             "tokendagger_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tokendagger_tpu', 'regex')]; "

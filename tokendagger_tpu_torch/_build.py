@@ -8,6 +8,10 @@ is reused. ``build_all`` starts one nvcc per source at once.
 
 ``csrc/piece_starts_host.cpp`` is the host build of the K1 derivation for
 the CPU tests; it is compiled the same way with the system C++ compiler.
+
+``native_build`` compiles the native host engine (``native/tdnative.cpp``,
+and with ``native/tdpy.cpp`` its CPython extension) with g++ into the same
+directory, with OpenMP where the toolchain has it.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from functools import lru_cache
@@ -29,6 +34,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+NATIVE_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+                "-fopenmp")
 
 
 def _nvcc() -> str:
@@ -101,3 +108,46 @@ def host_library(name: str) -> ctypes.CDLL:
     out, proc, tmp = _start(CSRC / f"{name}.cpp", cxx, CXX_FLAGS)
     _finish(out, proc, tmp)
     return ctypes.CDLL(str(out))
+
+
+def _cpu_tag() -> bytes:
+    """The host CPU's feature flags: ``-march=native`` code built on one
+    machine may not run (or not run as tuned) on another that loads the
+    same tree."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            return next((line for line in f if line.startswith(b"flags")),
+                        b"")
+    except OSError:
+        return platform.processor().encode()
+
+
+def native_build(name: str, sources: tuple[Path, ...],
+                 extra: tuple[str, ...] = (),
+                 timeout: float = 180) -> Path | None:
+    """Compile ``sources`` with g++ into ``_build/<name>_<hash>.so`` unless
+    it exists, retrying without ``-fopenmp`` (the batch entry points then
+    run serially); None when neither build succeeds. The target is named
+    by a hash of the sources, the flags and the CPU's features and written
+    through a pid-unique temporary file, so concurrent first uses do not
+    interleave."""
+    h = hashlib.sha256(" ".join(NATIVE_FLAGS + extra).encode())
+    h.update(_cpu_tag())
+    for src in sources:
+        h.update(src.read_bytes())
+    out = BUILD / f"{name}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = ["g++", *NATIVE_FLAGS, *extra, *map(str, sources), "-o", str(tmp)]
+    for attempt in (cmd, [c for c in cmd if c != "-fopenmp"]):
+        try:
+            subprocess.run(attempt, check=True, capture_output=True,
+                           timeout=timeout)
+        except (OSError, subprocess.SubprocessError):
+            continue
+        os.replace(tmp, out)
+        return out
+    tmp.unlink(missing_ok=True)
+    return None

@@ -42,15 +42,26 @@ against the host engine, in which an overflowed window counts as a
 mismatch. The reference's four probes return the same ranks; the port has
 one probe and reports the name it was given.
 
-Device time per stage comes from CUDA events around the stages of each
-timed repetition (the reference parses a profiler trace). On the CPU there
-is no device: ``stage_us`` is empty and ``device_ms`` 0, as the reference
-reports off the TPU.
+The timed repetitions run twice on the card. The first time, CUDA events
+around each stage give ``event_us``/``event_ms`` (which include the card's
+waits for the host's launches) and the host clock gives ``wall_ms``. The
+second time they run under a ``torch.profiler`` trace, one
+``record_function`` range per stage, and ``stage_us``/``device_ms`` sum the
+kernel, copy and memset durations that each stage launched, as the
+reference sums its programs' device time from a trace
+(``utils/profiling.stage_device_us``). The trace's kernel events of each
+hand-written kernel are counted against the wrappers' launch counters;
+``trace_kernel_shortfall`` names any kernel with fewer events than
+launches (a trace that lost events). On the CPU there is no device:
+``stage_us`` and ``event_us`` are empty and ``device_ms`` 0, as the
+reference reports off the TPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import tempfile
 import time
 from collections import Counter
 from dataclasses import asdict, dataclass
@@ -60,6 +71,7 @@ import torch
 
 from .convert import merge_tables_from_ranks, tables_from_ranks
 from .hostengine import HostEngine, byte_pair_merge
+from .ops import bitplane, compact, merge, pretokenize
 from .ops.bitplane import piece_starts_bits, piece_starts_chars
 from .ops.compact import compact_piece_keys, finalize
 from .ops.fused import (
@@ -75,7 +87,25 @@ from .ops.pretokenize import (
     utf8_decode, utf8_decode_ascii, utf8_decode_sorted, utf8_decode_tiles,
 )
 from .unicode_tables import get_two_level_tables
+from .utils import profiling
 from .utils.windows import char_align
+
+STAGES = ("decode", "starts", "expand", "compact", "probe", "finalize",
+          "resolve")
+# each wrapper with a launch counter, and the function name of the CUDA
+# kernel it launches (at least once a launch)
+TRACED_KERNELS = (
+    (pretokenize.utf8_decode_block, "utf8_decode_kernel"),
+    (bitplane.piece_starts_bits, "piece_starts_kernel"),
+    (bitplane.piece_starts_chars, "piece_starts_cp_kernel"),
+    (bitplane.piece_starts_words, "piece_starts_words_kernel"),
+    (bitplane.piece_starts_rows, "piece_starts_row_kernel"),
+    (compact.compact_piece_keys, "piece_keys_kernel"),
+    (compact.compact_by_mask, "mask_compact_kernel"),
+    (compact.compact_record, "record_kernel"),
+    (compact.expand_route, "route_expand_kernel"),
+    (merge.merge_rows, "merge_rows_kernel"),
+)
 
 
 @dataclass
@@ -84,9 +114,9 @@ class ResidentResult:
     n_windows: int
     reps: int
     calibration_ms: float       # trivial launch + synchronize
-    device_ms: float            # device time per batch (CUDA events)
+    device_ms: float            # device time per batch (profiler trace)
     kernel_mbps: float          # batch*window_bytes / device_ms
-    stage_us: dict              # device µs per stage per batch
+    stage_us: dict              # device µs per stage per batch (trace)
     wall_ms: float              # wall clock per batch incl. the final read
     wall_mbps: float
     total_tokens: int
@@ -103,6 +133,13 @@ class ResidentResult:
     overflow_windows: int = 0
     # hot-piece probe routing: count, compacted capacity, coverage
     probe_hot: dict | None = None
+    event_ms: float = 0.0       # CUDA-event time per batch
+    event_us: dict | None = None  # CUDA-event µs per stage per batch
+    # kernel name -> {"launches": wrapper launches, "events": the trace's
+    # kernel events} over the traced repetitions, for each kernel that ran
+    trace_kernels: dict | None = None
+    # kernel name -> launches the trace holds no kernel event for
+    trace_kernel_shortfall: dict | None = None
 
     def to_dict(self):
         return asdict(self)
@@ -177,6 +214,34 @@ def _hot_codepoints(win_bytes, N: int, c_cap: int):
     if len(hot) and u_tight <= (3 * c_cap32) // 4:
         return tuple(int(v) for v in hot), u_tight, c_cap32
     return None, None, c_cap
+
+
+def _traced_stage_us(pipeline, wins, reps: int) -> tuple[dict, dict]:
+    """``reps`` repetitions of ``pipeline`` under a profiler trace, each
+    stage in a ``record_function`` range: the device µs each stage
+    launched, summed over the repetitions, and per hand-written kernel
+    that ran its wrapper launches and the trace's kernel events."""
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.profile_trace(d):
+            # one repetition outside the ranges first: a trace can lose
+            # the kernels launched while tracing starts (the first
+            # decode kernel of 20 repetitions, on the H100)
+            pipeline(*wins[0])
+            torch.cuda.synchronize()
+            before = [fn.launches for fn, _ in TRACED_KERNELS]
+            for r in range(reps):
+                pipeline(*wins[r % len(wins)],
+                         torch.profiler.record_function)
+            torch.cuda.synchronize()
+        events = profiling.trace_events(d)
+    seen = profiling.kernel_counts(events, [n for _, n in TRACED_KERNELS],
+                                   STAGES)
+    kernels = {}
+    for (fn, name), b in zip(TRACED_KERNELS, before):
+        if fn.launches - b or seen[name]:
+            kernels[name] = {"launches": fn.launches - b,
+                             "events": seen[name]}
+    return profiling.stage_device_us(events, STAGES), kernels
 
 
 def run_resident(
@@ -345,51 +410,50 @@ def run_resident(
                                         untrimmed=True)
         return finalize_host(sb, pl, rank, npc, N, p_cap=p_cap)
 
-    def no_tick(name: str) -> None:
-        pass
-
-    def pipeline(d, nb, tick=no_tick):
-        """One batch (a (1, N) window when batch=1) through the stages;
-        ``tick(stage)`` after each. Returns finalize's 9-tuple with every
-        overflow ORed into [5]."""
+    def pipeline(d, nb, stage=contextlib.nullcontext):
+        """One batch (a (1, N) window when batch=1) through the stages,
+        each inside ``stage(name)``. Returns finalize's 9-tuple with
+        every overflow ORed into [5]."""
         flags = []
         if general:
-            cp, lead, m, route = utf8_decode_tiles(d, nb, c_cap=c_cap)
-            tick("decode")
-            if hot_cps is not None:
-                st_c, cls_ovf = piece_starts_chars(
-                    cp, m, profile=profile, hot_cps=hot_cps, u_cap=u_cap)
-                flags.append(cls_ovf)
-            else:
-                st_c = piece_starts_chars(cp, m, profile=profile)
-            tick("starts")
-            starts = expand_starts_replay(st_c, lead, route)
-            tick("expand")
-            keys = compact_piece_keys(starts, d, nb, p_cap)
+            with stage("decode"):
+                cp, lead, m, route = utf8_decode_tiles(d, nb, c_cap=c_cap)
+            with stage("starts"):
+                if hot_cps is not None:
+                    st_c, cls_ovf = piece_starts_chars(
+                        cp, m, profile=profile, hot_cps=hot_cps,
+                        u_cap=u_cap)
+                    flags.append(cls_ovf)
+                else:
+                    st_c = piece_starts_chars(cp, m, profile=profile)
+            with stage("expand"):
+                starts = expand_starts_replay(st_c, lead, route)
+            with stage("compact"):
+                keys = compact_piece_keys(starts, d, nb, p_cap)
         elif fused_ascii:
-            words = piece_starts_bits(d, nb, profile=profile)
-            tick("starts")
-            keys = compact_piece_keys(words, d, nb, p_cap, packed=True)
+            with stage("starts"):
+                words = piece_starts_bits(d, nb, profile=profile)
+            with stage("compact"):
+                keys = compact_piece_keys(words, d, nb, p_cap, packed=True)
         else:
-            cp, cob, boc, m = decode(d, nb)
-            tick("decode")
-            starts = starts_of(cp, m)
-            tick("starts")
+            with stage("decode"):
+                cp, cob, boc, m = decode(d, nb)
+            with stage("starts"):
+                starts = starts_of(cp, m)
             if miss_mode != "host":
-                out = resolve_window(
-                    starts, boc, d, nb, N, mt.byte_rank, mt.pair_rows,
-                    mt.pair_lut, mt.vk, mt.vlen, mt.vrank, rows,
-                    mask=mt.pair_mask, vhash_mask=vmask, join_mode=join_mode,
-                    miss_mode=miss_mode, **caps)
-                tick("resolve")
-                return out
-            keys = compact_of(starts, cob, boc, d, nb)
-        tick("compact")
+                with stage("resolve"):
+                    return resolve_window(
+                        starts, boc, d, nb, N, mt.byte_rank, mt.pair_rows,
+                        mt.pair_lut, mt.vk, mt.vlen, mt.vrank, rows,
+                        mask=mt.pair_mask, vhash_mask=vmask,
+                        join_mode=join_mode, miss_mode=miss_mode, **caps)
+            with stage("compact"):
+                keys = compact_of(starts, cob, boc, d, nb)
         sb, pl, k0, k1, k2, k3, npc = keys
-        rank, p_ovf = probe(k0, k1, k2, k3, pl)
-        tick("probe")
-        out = finalize_of(sb, pl, rank, npc)
-        tick("finalize")
+        with stage("probe"):
+            rank, p_ovf = probe(k0, k1, k2, k3, pl)
+        with stage("finalize"):
+            out = finalize_of(sb, pl, rank, npc)
         if p_ovf is not None:
             flags.append(p_ovf)
         for ovf in flags:
@@ -428,32 +492,42 @@ def run_resident(
     sync()
     gc.collect()
 
-    # ---- timed repetitions: CUDA events between the stages -------------
+    # ---- timed repetitions: CUDA events around the stages -------------
     marks: list = []
 
-    def tick(name: str) -> None:
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        marks.append((name, e))
+    @contextlib.contextmanager
+    def event_stage(name: str):
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b = torch.cuda.Event(enable_timing=True)
+        b.record()
+        marks.append((name, a, b))
 
     t0 = time.perf_counter()
     last = None
     for r in range(reps):
         d, nb = wins[r % len(wins)]
-        if on_card:
-            tick("")
-            last = pipeline(d, nb, tick)
-        else:
-            last = pipeline(d, nb)
+        last = pipeline(d, nb, event_stage if on_card
+                        else contextlib.nullcontext)
     total_tokens = int(last[1].sum())   # the one read that drains the queue
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
     overflow_windows = int(last[5].sum())
-    stage_tot: dict[str, float] = {}
-    for (_, a), (name, b) in zip(marks, marks[1:]):
-        if name:
-            stage_tot[name] = stage_tot.get(name, 0.0) + a.elapsed_time(b) * 1e3
-    stage_us = {k: round(v / reps, 2) for k, v in sorted(stage_tot.items())}
-    device_ms = sum(stage_tot.values()) / reps / 1e3
+    event_tot: dict[str, float] = {}
+    for name, a, b in marks:
+        event_tot[name] = event_tot.get(name, 0.0) + a.elapsed_time(b) * 1e3
+    event_us = {k: round(v / reps, 2) for k, v in sorted(event_tot.items())}
+    event_ms = sum(event_tot.values()) / reps / 1e3
+
+    # ---- the same repetitions under a profiler trace: device time ------
+    stage_us: dict = {}
+    device_ms = 0.0
+    kernels: dict = {}
+    if on_card:
+        stage_tot, kernels = _traced_stage_us(pipeline, wins, reps)
+        stage_us = {k: round(v / reps, 2) for k, v in sorted(
+            stage_tot.items())}
+        device_ms = sum(stage_tot.values()) / reps / 1e3
 
     # ---- H2D/compute overlap trial (resident.py:728-778) ----------------
     overlap_stats = None
@@ -501,6 +575,12 @@ def run_resident(
                  coverage=probe_hot_cfg["coverage"])
             if probe_hot_cfg is not None else None
         ),
+        event_ms=round(event_ms, 4),
+        event_us=event_us,
+        trace_kernels=kernels,
+        trace_kernel_shortfall={
+            k: v["launches"] - v["events"] for k, v in kernels.items()
+            if v["launches"] > v["events"]},
     )
 
 

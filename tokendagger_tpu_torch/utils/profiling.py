@@ -4,6 +4,9 @@
   card) CUDA activity, written to ``dir`` as a Chrome/Perfetto trace.
 * ``device_busy_us(dir)``: the device's busy time in such a trace, from
   which a caller derives the device's idle share of a wall interval.
+* ``stage_device_us(events, stages)``: the device time each
+  ``torch.profiler.record_function`` range launched, and
+  ``kernel_counts(events, names)`` the trace's kernel events by name.
 * ``Timer``: nestable wall-clock section timer with a report.
 * ``RateMeter``: bytes/tokens throughput accounting; its JSON schema is
   the JAX package's (``tokendagger_tpu/utils/profiling.py``).
@@ -11,8 +14,10 @@
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
+import re
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -37,17 +42,23 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def trace_events(log_dir: str) -> list[dict]:
+    """The events of the newest trace in ``log_dir`` ([] if none)."""
+    paths = sorted(Path(log_dir).glob("*.pt.trace.json"),
+                   key=lambda p: p.stat().st_mtime)
+    if not paths:
+        return []
+    return json.loads(paths[-1].read_text()).get("traceEvents", [])
 
 
 def device_busy_us(log_dir: str) -> tuple[float, int]:
     """Busy time of the device in the newest trace of ``log_dir``: the
     union of its kernel, copy and memset intervals in µs, and its number
     of kernels. (0.0, 0) when the trace holds no device activity."""
-    paths = sorted(Path(log_dir).glob("*.pt.trace.json"),
-                   key=lambda p: p.stat().st_mtime)
-    if not paths:
-        return 0.0, 0
-    events = json.loads(paths[-1].read_text()).get("traceEvents", [])
+    events = trace_events(log_dir)
     dev = [e for e in events
            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     busy, end = 0.0, float("-inf")
@@ -56,6 +67,71 @@ def device_busy_us(log_dir: str) -> tuple[float, int]:
             busy += b - max(a, end)
             end = b
     return busy, sum(e["cat"] == "kernel" for e in dev)
+
+
+def _launch_stage(events: list[dict], stages) -> tuple[dict, set]:
+    """correlation id -> the name of the ``record_function`` range (one
+    of ``stages``) that holds the runtime call with that id on its
+    thread; and the names of all such ranges in the trace."""
+    ranges: dict = {}
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e.get("name") in stages):
+            ranges.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+    for rs in ranges.values():
+        rs.sort()
+    stage_of: dict = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in RUNTIME_CATS:
+            continue
+        corr = e.get("args", {}).get("correlation")
+        rs = ranges.get((e["pid"], e["tid"]))
+        if corr is None or not rs:
+            continue
+        i = bisect.bisect_right(rs, (e["ts"], float("inf"), "")) - 1
+        if i >= 0 and e["ts"] <= rs[i][1]:
+            stage_of[corr] = rs[i][2]
+    return stage_of, {r[2] for rs in ranges.values() for r in rs}
+
+
+def stage_device_us(events: list[dict], stages) -> dict[str, float]:
+    """µs of device work per ``record_function`` range named in
+    ``stages``: the summed durations of the kernel, copy and memset events
+    that the range launched. A device event is not inside its CPU range
+    in time; it carries the ``args.correlation`` of the runtime call that
+    launched it (``cudaLaunchKernel``, ``cudaMemcpyAsync`` and kin), and
+    that call lies inside the range on the launching thread. Summing the
+    ranges' ``gpu_user_annotation`` spans instead would count the gaps
+    between kernels. Ranges on one thread must not overlap; a range that
+    launched no device work reports 0."""
+    stage_of, seen = _launch_stage(events, stages)
+    out = dict.fromkeys(sorted(seen), 0.0)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
+            name = stage_of.get(e.get("args", {}).get("correlation"))
+            if name is not None:
+                out[name] += float(e["dur"])
+    return out
+
+
+def kernel_counts(events: list[dict], names, stages=None) -> dict[str, int]:
+    """Kernel events of each function name in ``names``, matched as a
+    whole identifier in the demangled kernel name; with ``stages``, only
+    those launched inside a ``record_function`` range of those names."""
+    pats = {n: re.compile(rf"(?<!\w){re.escape(n)}(?!\w)") for n in names}
+    stage_of = _launch_stage(events, stages)[0] if stages else None
+    out = dict.fromkeys(names, 0)
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        if (stage_of is not None
+                and e.get("args", {}).get("correlation") not in stage_of):
+            continue
+        for n, pat in pats.items():
+            if pat.search(e.get("name", "")):
+                out[n] += 1
+    return out
 
 
 class Timer:
