@@ -141,7 +141,7 @@
    * "streaming": StreamingEncoder fed 4 MB of multi-script text with
      specials in seeded chunks of 1 B-64 KB; the ids must equal one
      encode and the host engine's; prints the wall rate.
-10. The host backend and "auto" (run last, as the paths "host" and "auto"):
+10. The host backend and "auto" (the paths "host" and "auto"):
    * "host": Tokenizer(backend="host") must run the native C++ engine
      (built by g++ at first use; the run fails on the pure-Python
      fallback) and prints which binding loaded. Over step 5's 12.6 MB
@@ -156,7 +156,35 @@
      checks that auto chose as its constants say (_DEVICE_MIN_BYTES,
      _DEVICE_AUTO_MIN_BYTES, _DEVICE_HEALTHY_MS) and that every id equals
      the host engine's.
-11. Prints a "kernels" JSON line, then the card's name and power limit, and
+11. The "mesh" path, ``tokendagger_tpu_torch/parallel`` (run last), as
+   the JAX package's multi-device dry run drives it, at one NCCL rank
+   (``get_mesh(1)``), with a merge-reachable stand-in (the engine phase's
+   recipe at 450,000 candidates, the tokens the merge of their bytes does
+   not make dropped until the audit holds, renumbered densely; its size
+   and times printed):
+   * ``sharded_encode_step`` and ``sharded_encode_step_2d`` at (1, 1) on
+     262,144 rows of 64 B of the engine text's pretokens: every row's
+     tokens equal ``byte_pair_encode``, both counters the totals; the
+     merge kernel held against its plain loop on those rows and timed;
+   * ``ShardedTextEncoder`` (128 KB shards, 16 KB halo) over 16 MB of
+     multi-script text: ids equal to the native host engine's, no
+     fallback; prints passes, the wall rate, the audit's time and the
+     device's idle share; K9, K4 and the merge held against their plain
+     versions on the warm-up's recorded inputs (the merge timed);
+   * ``mesh_resident_pipeline`` at 8 x 1 MB with the 200,000-rank
+     stand-in, impl "ascii" on ASCII windows and impl "general" with both
+     hot routes on multi-script windows: every output equal to
+     run_resident's ``batch_pipeline`` on the same windows, ids after the
+     splice equal to the host engine's, the counters the totals; the
+     kernel rate from a trace's device time; every kernel held against
+     its plain version on the recorded inputs;
+   * two ranks spawned on the one card over gloo with CUDA tensors (the
+     vocabulary handed over in a file): the steps on 65,536 rows and the
+     sharded text of 4 MB; rows, counters and ids equal one rank's; both
+     rates printed.
+   Every kernel of the path (K9, K1 bytes and class words, K2+K3, K4,
+   K5-K8, the merge) must launch in the one-rank legs.
+12. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
 
@@ -1172,6 +1200,7 @@ def resident_counters():
 
 # each kernel's launcher, by module: the one place its wrapper launches it
 LAUNCHERS = (("utf8_decode_block", "pretokenize", "_launch_k9"),
+             ("piece_starts", "bitplane", "_launch_k1"),
              ("piece_starts_cp", "bitplane", "_launch_k1_cp"),
              ("piece_starts_words", "bitplane", "_launch_k1_words"),
              ("compact_piece_keys", "compact", "_launch_k2k3"),
@@ -2808,6 +2837,490 @@ def time_sort_formulations(seed: int, dev) -> dict:
         out[stage] = t
     return out
 
+# ===========================================================================
+# The mesh phase: parallel/ on torch.distributed
+# ===========================================================================
+
+MESH_ROWS, MESH_ROW_W = 262_144, 64     # the steps' packed pretoken rows
+MESH_TEXT_MB = 16                       # the sharded text
+MESH_PAIR_ROWS, MESH_PAIR_MB = 65_536, 4   # two ranks sharing the card
+MESH_CANDIDATES = 450_000               # stand-in ranks before the audit
+
+
+def mesh_counters():
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import merge as M
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+
+    # K1's codepoint entry is not on the path: the sharded text finds its
+    # starts by match lengths and pointer doubling (plain torch), and the
+    # general mesh pipeline runs the hot-codepoint route (class words)
+    return dict(utf8_decode_block=PT.utf8_decode_block,
+                piece_starts=BP.piece_starts_bits,
+                piece_starts_words=BP.piece_starts_words,
+                compact_piece_keys=CP.compact_piece_keys,
+                compact_by_mask=CP.compact_by_mask,
+                compact_record=CP.compact_record,
+                expand_route=CP.expand_route, merge=M.merge_rows)
+
+
+def reachable_vocab(seed: int) -> dict[bytes, int]:
+    """A merge-reachable stand-in: the 450,000-candidate stand-in (the
+    engine phase's recipe at a larger count), its unreachable tokens
+    dropped until the audit holds at a fixed point, renumbered densely in
+    rank order (which keeps every merge's outcome)."""
+    from tokendagger_tpu_torch.tables import unreachable
+
+    t = time.perf_counter()
+    ranks = dict(standin_vocab(MESH_CANDIDATES, seed,
+                               extra=multiscript(1 << 20, seed + 4)))
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    rounds = 0
+    while True:
+        rounds += 1
+        bad = list(unreachable(ranks))
+        if not bad:
+            break
+        for tb in bad:
+            del ranks[tb]
+    ranks = {tb: i for i, tb in enumerate(sorted(ranks, key=ranks.get))}
+    print(f"mesh: reachable stand-in {len(ranks)} ranks of "
+          f"{MESH_CANDIDATES} candidates (audit to a fixed point in {rounds} "
+          f"rounds, {time.perf_counter() - t:.1f} s; candidates "
+          f"{build_s:.1f} s)")
+    return ranks
+
+
+def mesh_rows(text: str, ranks: dict, n_rows: int, width: int):
+    """(buf (n_rows, width) uint8, lens, expected ids per row): the
+    pretokens of at most ``width`` bytes of ``text``, in order, and each
+    one's byte_pair_encode."""
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine
+    from tokendagger_tpu_torch.hostengine import byte_pair_encode
+
+    host = HostEngine(LLAMA4_PATTERN, ranks, {})
+    pieces: list[bytes] = []
+    pos = 0
+    while len(pieces) < n_rows:
+        chunk = text[pos : pos + (1 << 20)]
+        if not chunk:
+            raise AssertionError("the text holds too few pretokens")
+        pos += len(chunk)
+        for a, b in host.split_spans(chunk):
+            p = chunk[a:b].encode()
+            if len(p) <= width:
+                pieces.append(p)
+    pieces = pieces[:n_rows]
+    buf = np.zeros((n_rows, width), np.uint8)
+    lens = np.zeros(n_rows, np.int32)
+    memo: dict[bytes, list[int]] = {}
+    want = []
+    for r, p in enumerate(pieces):
+        buf[r, : len(p)] = np.frombuffer(p, np.uint8)
+        lens[r] = len(p)
+        if p not in memo:
+            memo[p] = byte_pair_encode(p, ranks)
+        want.append(memo[p])
+    return buf, lens, want
+
+
+def check_step(label: str, out, lens, want) -> None:
+    """A step's (tok, counts, bytes, tokens) against the expected ids
+    per row and the totals."""
+    tok, counts, tb, tt = out
+    flat = tok[tok >= 0].cpu().numpy()
+    exp = np.fromiter((i for w in want for i in w), np.int64)
+    n_want = np.asarray([len(w) for w in want])
+    ok = (np.array_equal(counts.cpu().numpy(), n_want)
+          and np.array_equal(flat, exp)
+          and int(tb) == int(lens.sum()) and int(tt) == len(exp))
+    print(f"mesh {label}: {len(want)} rows, tokens equal byte_pair_encode "
+          f"{ok}; counters bytes {int(tb)}, tokens {int(tt)}")
+    if not ok:
+        raise AssertionError(f"mesh {label}: tokens or counters differ")
+
+
+def hold_recorded(seen: dict, label: str) -> dict:
+    """Every kernel against its plain version on the arguments of each
+    recorded launch (``recorded_inputs``); returns each kernel's largest
+    error and fails on any difference."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import merge as M
+    from tokendagger_tpu_torch.ops import pretokenize as PT
+
+    def pair(name, a):
+        if name == "utf8_decode_block":
+            return (PT.utf8_decode_block(*a), PT.utf8_decode_block_plain(*a))
+        if name == "piece_starts":
+            by, nb, prof = a
+            return ([BP.piece_starts_bits(by, nb, profile=prof)],
+                    [BP.piece_starts_bits_plain(by, nb, profile=prof)])
+        if name == "piece_starts_cp":
+            cp, m, prof = a
+            return ([BP.piece_starts_chars(cp, m, profile=prof,
+                                           packed_out=True)],
+                    [BP.piece_starts_chars_plain(cp, m, profile=prof)])
+        if name == "piece_starts_words":
+            w, m, prof = a
+            return ([BP.piece_starts_words(w, m, profile=prof)],
+                    [BP.piece_starts_words_plain(w, m, profile=prof)])
+        if name == "compact_piece_keys":
+            st, d, nb, p_cap, packed = a
+            return (CP.compact_piece_keys(st, d, nb, p_cap, packed=packed),
+                    CP.compact_piece_keys_plain(st, d, nb, p_cap,
+                                                packed=packed))
+        if name == "compact_by_mask":
+            arrays, mask, fill = a
+            return (CP.compact_by_mask(arrays, mask, fill=fill),
+                    CP.compact_by_mask_plain(arrays, mask, fill=fill))
+        if name == "compact_record":
+            arrays, mask, cap, fill = a
+            got = CP.compact_record(arrays, mask, cap=cap, fill=fill)
+            want = CP.compact_record_plain(arrays, mask, cap=cap, fill=fill)
+            return ([*got[0], got[1], got[2]], [*want[0], want[1], want[2]])
+        if name == "expand_route":
+            return ([CP.expand_route(*a)], [CP.expand_route_plain(*a)])
+        by, ln, br, rows, mask, lut = a
+        return (M.merge_rows(by, ln, br, rows, mask, lut),
+                M.merge_rows_local(by, ln, br, rows, mask=mask,
+                                   pair_lut=lut))
+
+    errs: dict = {}
+    for key, args in seen.items():
+        name = key[0]
+        err = max_abs_err(*pair(name, args))
+        shape = tuple(args[0][0].shape if isinstance(args[0], list)
+                      else args[0].shape)
+        print(f"mesh {label}: {name} {shape} max_abs_err {err} (recorded "
+              "inputs)")
+        if err:
+            raise AssertionError(f"mesh {label}: {name} differs from its "
+                                 f"plain version at {shape}")
+        errs[name] = max(errs.get(name, 0), err)
+    return errs
+
+
+def time_merge(args, label: str) -> dict:
+    """The merge kernel's timings (``timings``) on one recorded launch's
+    arguments."""
+    from tokendagger_tpu_torch.ops import merge as M
+
+    by, ln, br, rows, mask, lut = args
+
+    def plain():
+        return M.merge_rows_local(by, ln, br, rows, mask=mask, pair_lut=lut)
+
+    R, W = by.shape
+    n_bytes, n_ops, n_merges, longest = merge_cost(ln, plain()[1], W,
+                                                   lut is not None)
+    t = timings(lambda: M.merge_rows(by, ln, br, rows, mask, lut), plain,
+                n_bytes, n_ops, plain_reps=3)
+    t.update(merges=n_merges, longest_row_merges=longest)
+    print(f"merge [mesh {label} {(R, W)}]: {show(t)}; {n_merges} merges, "
+          f"longest row {longest}")
+    return t
+
+
+def _mesh_rank(rank: int, dev: str, store: str, vocab: str, rows: str,
+               text: str, out: str) -> None:
+    """One of two ranks sharing the card ``dev`` over gloo (spawned): the
+    1-D and (1, 2) steps on its half of the rows and the sharded text;
+    writes its results to ``out``/rank.pkl."""
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tokendagger_tpu_torch import (
+        LLAMA4_PATTERN, DeviceEngine, load_tiktoken_model,
+    )
+    from tokendagger_tpu_torch.convert import merge_tables_from_ranks
+    from tokendagger_tpu_torch.parallel import mesh as PM
+    from tokendagger_tpu_torch.parallel.sharded_text import ShardedTextEncoder
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = PM.get_mesh(2, device=dev, backend="gloo")
+        m2 = PM.get_mesh_2d(1, 2, device=dev, backend="gloo")
+        ranks = load_tiktoken_model(vocab)
+        z = np.load(rows)
+        mt = merge_tables_from_ranks(ranks, device=dev)
+        bb, ln = PM.shard_rows(mesh, z["buf"], z["lens"])
+        args = (bb, ln, mt.byte_rank, mt.pair_rows, mt.pair_mask)
+        res = {"step": [x.cpu().numpy() for x in
+                        PM.sharded_encode_step(mesh)(*args)],
+               "step_2d": [x.cpu().numpy() for x in
+                           PM.sharded_encode_step_2d(m2)(*args)]}
+        eng = DeviceEngine(LLAMA4_PATTERN, ranks, {}, device=dev)
+        st = ShardedTextEncoder(eng, mesh)
+        with open(text, "rb") as f:
+            data = f.read()
+        st.encode(data[: 1 << 20])              # warm-up
+        dist.barrier(group=mesh.group)
+        p0, f0 = st.passes, st.fallbacks
+        t = time.perf_counter()
+        ids = st.encode(data)
+        res.update(wall=time.perf_counter() - t, ids=ids,
+                   passes=st.passes - p0, fallbacks=st.fallbacks - f0)
+        with open(f"{out}/{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_pair(dev: str, ranks: dict, buf, lens, want_rows, data: bytes,
+                  want_ids: list, one_rank_wall: float) -> None:
+    """Two ranks sharing the card over gloo with CUDA tensors (spawned;
+    the kernels are already built): steps over MESH_PAIR_ROWS rows and
+    the sharded text of ``data``; ids and counters must equal one
+    rank's."""
+    import base64
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(f"{d}/vocab.tiktoken", "wb") as f:
+            for tb, r in ranks.items():
+                f.write(base64.b64encode(tb) + b" %d\n" % r)
+        np.savez(f"{d}/rows.npz", buf=buf, lens=lens)
+        with open(f"{d}/text.bin", "wb") as f:
+            f.write(data)
+        ctx = mp.get_context("spawn")
+        t = time.perf_counter()
+        procs = [ctx.Process(target=_mesh_rank, args=(
+            r, dev, f"{d}/store", f"{d}/vocab.tiktoken", f"{d}/rows.npz",
+            f"{d}/text.bin", d)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"mesh pair: ranks exited {codes}")
+        res = []
+        for r in range(2):
+            with open(f"{d}/{r}.pkl", "rb") as f:
+                res.append(pickle.load(f))
+    half = len(lens) // 2
+    n_tokens = sum(len(w) for w in want_rows)
+    for r, x in enumerate(res):
+        sub = want_rows[r * half : (r + 1) * half]
+        exp = np.fromiter((i for w in sub for i in w), np.int64)
+        ok = True
+        for label in ("step", "step_2d"):
+            tok, counts, tb, tt = x[label]
+            ok = (ok and np.array_equal(tok[tok >= 0], exp)
+                  and np.array_equal(counts, [len(w) for w in sub])
+                  and int(tb) == int(lens.sum()) and int(tt) == n_tokens)
+        same = x["ids"].tolist() == want_ids
+        print(f"mesh pair rank {r}: rows {r * half}-{(r + 1) * half} equal "
+              f"byte_pair_encode and both counters the totals {ok}; "
+              f"sharded text ids equal one rank's {same}, passes "
+              f"{x['passes']}, fallbacks {x['fallbacks']}")
+        if not (ok and same and x["fallbacks"] == 0):
+            raise AssertionError(f"mesh pair rank {r} differs from one rank")
+    wall = max(x["wall"] for x in res)
+    mb = len(data) / 1e6
+    print(f"mesh pair: sharded text {len(data)} B at 2 ranks "
+          f"{mb / wall:.2f} MB/s (wall {wall:.3f} s), at 1 rank "
+          f"{mb / one_rank_wall:.2f} MB/s (wall {one_rank_wall:.3f} s); "
+          f"phase {time.perf_counter() - t:.1f} s with the spawn")
+
+
+def run_mesh(seed: int, mb: int, dev) -> tuple[dict, dict, dict]:
+    """The mesh phase, parallel/ at one NCCL rank on the card (the module
+    doc, step 11): the 1-D and 2-D steps, ShardedTextEncoder and
+    mesh_resident_pipeline, then two gloo ranks sharing the card. Returns
+    the one-rank legs' launches (counts set to 0 before each leg), each
+    kernel's largest error against its plain version on the legs'
+    recorded inputs, and the merge's timings at the mesh shapes."""
+    import torch.distributed as dist
+
+    from tokendagger_tpu_torch import (
+        LLAMA4_PATTERN, DeviceEngine, HostEngine, Tokenizer,
+    )
+    from tokendagger_tpu_torch.convert import (
+        merge_tables_from_ranks, tables_from_ranks,
+    )
+    from tokendagger_tpu_torch.ops.fused import caps_for
+    from tokendagger_tpu_torch.parallel import mesh as PM
+    from tokendagger_tpu_torch.parallel.resident_mesh import (
+        mesh_resident_pipeline,
+    )
+    from tokendagger_tpu_torch.parallel.sharded_text import ShardedTextEncoder
+    from tokendagger_tpu_torch.resident import (
+        _check_window, _hot_codepoints, _hot_pieces, batch_pipeline,
+    )
+    from tokendagger_tpu_torch.utils.windows import char_align, tile_windows
+
+    t_phase = time.perf_counter()
+    counters = mesh_counters()
+    launches = dict.fromkeys(counters, 0)
+    errs: dict = {}
+    times: dict = {}
+
+    def leg(fn):
+        out, wall, run = count_runs(counters, fn)
+        for k, v in run.items():
+            launches[k] += v
+        return out, wall, run
+
+    def held(seen, label):
+        for k, v in hold_recorded(seen, label).items():
+            errs[k] = max(errs.get(k, 0), v)
+
+    def synced(fn):
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    ranks = reachable_vocab(seed)
+    mesh = PM.get_mesh(1)
+    print(f"mesh: get_mesh(1) rank {mesh.rank} of {mesh.size} on "
+          f"{mesh.device}, backend {dist.get_backend(mesh.group)}")
+
+    # ---- the steps on 262,144 pretoken rows of the engine text ----
+    t = time.perf_counter()
+    buf, lens, want_rows = mesh_rows(engine_texts(seed, mb)[0], ranks,
+                                     MESH_ROWS, MESH_ROW_W)
+    mt = merge_tables_from_ranks(ranks, device=dev)
+    print(f"mesh steps: rows {buf.shape}, {int(lens.sum())} B, set-up "
+          f"{time.perf_counter() - t:.1f} s")
+    bb, ln = PM.shard_rows(mesh, buf, lens)
+    args = (bb, ln, mt.byte_rank, mt.pair_rows, mt.pair_mask)
+    steps = (("1-D step", PM.sharded_encode_step(mesh)),
+             ("2-D step (1, 1)",
+              PM.sharded_encode_step_2d(PM.get_mesh_2d(1, 1))))
+    with recorded_inputs() as seen:
+        for label, step in steps:
+            out, wall, run = leg(synced(lambda: step(*args)))
+            check_step(label, out, lens, want_rows)
+            print(f"mesh {label}: wall {wall * 1e3:.3f} ms, launches "
+                  f"{json.dumps({k: v for k, v in run.items() if v})}")
+    held(seen, "steps")
+    merge_args = next(a for k, a in seen.items() if k[0] == "merge")
+    times[f"mesh steps {tuple(bb.shape)}"] = time_merge(merge_args, "steps")
+
+    # ---- ShardedTextEncoder over 16 MB at the JAX defaults ----
+    text = multiscript(MESH_TEXT_MB << 20, seed + 31)
+    data = text.encode()
+    host = Tokenizer("mesh", pat_str=LLAMA4_PATTERN, mergeable_ranks=ranks,
+                     special_tokens={}, backend="host", device=dev)
+    t = time.perf_counter()
+    want_ids = host.encode_ordinary(text)
+    host_s = time.perf_counter() - t
+    eng = DeviceEngine(LLAMA4_PATTERN, ranks, {}, device=dev)
+    t = time.perf_counter()
+    reachable = eng.all_reachable()
+    print(f"mesh: the merge-reachability audit of {len(ranks)} ranks "
+          f"(DeviceEngine.all_reachable): {reachable} in "
+          f"{time.perf_counter() - t:.2f} s")
+    st = ShardedTextEncoder(eng, mesh)
+    with recorded_inputs() as seen:
+        st.encode(data[: 1 << 20])                   # warm-up: 8 passes
+    held(seen, "sharded text")
+    merge_args = next(a for k, a in seen.items() if k[0] == "merge")
+    times[f"mesh text {tuple(merge_args[0].shape)}"] = time_merge(
+        merge_args, "sharded text")
+    p0, f0 = st.passes, st.fallbacks
+    ids, wall, run = leg(lambda: st.encode(data))
+    passes, fallbacks = st.passes - p0, st.fallbacks - f0
+    same = ids.tolist() == want_ids
+    print(f"mesh sharded text: {len(data)} B, shards {st.W} B + halo {st.H} "
+          f"B, ids equal the host engine's {same}; passes {passes}, "
+          f"fallbacks {fallbacks}; {len(data) / 1e6 / wall:.2f} MB/s wall "
+          f"({wall:.3f} s; native host engine {host_s:.3f} s); launches "
+          f"{json.dumps({k: v for k, v in run.items() if v})}")
+    if not same or fallbacks:
+        raise AssertionError("mesh sharded text: ids differ from the host "
+                             "engine's, or a pass fell back")
+    idle_share(lambda: st.encode(data), "mesh sharded text")
+
+    # ---- mesh_resident_pipeline at 8 x 1 MB with the 200,000 stand-in ----
+    r200 = standin_vocab(200_000, seed, extra=multiscript(1 << 20, seed + 4))
+    tables = tables_from_ranks(r200, device=dev)
+    host200 = Tokenizer("standin", pat_str=LLAMA4_PATTERN,
+                        mergeable_ranks=r200, special_tokens={},
+                        backend="host", device=dev)
+    p_cap = caps_for(WINDOW)["p_cap"]
+    for impl, corp in (("ascii", corpus(9 * WINDOW, seed + 41)),
+                       ("general", multiscript(9 * WINDOW, seed + 9))):
+        wins, nbs = tile_windows(corp.encode(), WINDOW, BATCH)
+        win_bytes = [wins[b, : nbs[b]].tobytes() for b in range(BATCH)]
+        kw: dict = dict(impl=impl)
+        cap = p_cap
+        if impl == "general":
+            hot_cps, u_cap, c_cap = _hot_codepoints(win_bytes, WINDOW, WINDOW)
+            probe_cfg, cap = _hot_pieces(
+                HostEngine(LLAMA4_PATTERN, r200, {}), win_bytes, r200, p_cap)
+            if hot_cps is None or probe_cfg is None:
+                raise AssertionError("mesh pipeline: a hot route's gate is "
+                                     "shut on the multi-script windows")
+            kw.update(c_cap=c_cap, probe_hot_cfg=probe_cfg,
+                      class_hot_cfg=dict(hot_cps=hot_cps, u_cap=u_cap))
+        fn = mesh_resident_pipeline(mesh, tables, None, None, window=WINDOW,
+                                    p_cap=cap, **kw)
+        d, nb = PM.shard_rows(mesh, wins, nbs)
+        with recorded_inputs() as seen:
+            synced(lambda: fn(d, nb))()
+        held(seen, f"pipeline {impl}")
+        out, wall, run = leg(synced(lambda: fn(d, nb)))
+        hot = kw.get("class_hot_cfg", {})
+        want = batch_pipeline(
+            d, nb, impl=impl, p_cap=cap, rows=tables.vhash8_rows,
+            vmask=tables.vhash8_mask, c_cap=kw.get("c_cap"),
+            hot_cps=hot.get("hot_cps"), u_cap=hot.get("u_cap"),
+            probe_hot_cfg=kw.get("probe_hot_cfg"))
+        equal = all(torch.equal(a, b) for a, b in zip(out[:9], want))
+        out_np = [o.cpu().numpy() for o in out]
+        match = all(_check_window(tuple(o[b] for o in out_np[:9]),
+                                  win_bytes[b], host200, r200)
+                    for b in range(BATCH))
+        counted = (int(out[9]) == int(out[1].sum())
+                   and int(out[10]) == int(nbs.sum()))
+        ms = traced(lambda: fn(d, nb))[0]
+        print(f"mesh pipeline {impl}: {BATCH} x {WINDOW} B, p_cap {cap}"
+              f"{', hot codepoints and pieces' if hot else ''}: outputs "
+              f"equal run_resident's batch_pipeline {equal}, ids equal the "
+              f"host engine's {match}, counters the totals {counted}; "
+              f"device {ms} ms a batch (trace), kernel "
+              f"{BATCH * WINDOW / 1e6 / (ms / 1e3) if ms else 0:.2f} MB/s; "
+              f"wall {wall * 1e3:.3f} ms; launches "
+              f"{json.dumps({k: v for k, v in run.items() if v})}")
+        if not (equal and match and counted and ms):
+            raise AssertionError(f"mesh pipeline {impl}: outputs, ids or "
+                                 "counters differ, or the trace held no "
+                                 "kernel")
+
+    # ---- two ranks sharing the card over gloo ----
+    pair_data = char_align(np.frombuffer(data[: MESH_PAIR_MB << 20],
+                                         np.uint8)).tobytes()
+    t = time.perf_counter()
+    want_pair = st.encode(pair_data)
+    one_wall = time.perf_counter() - t
+    run_mesh_pair(str(mesh.device), ranks, buf[:MESH_PAIR_ROWS],
+                  lens[:MESH_PAIR_ROWS],
+                  want_rows[:MESH_PAIR_ROWS], pair_data, want_pair.tolist(),
+                  one_wall)
+    dead = [k for k, v in launches.items() if not v]
+    if dead:
+        raise AssertionError(f"mesh: kernels never launched: {dead}")
+    dist.destroy_process_group()
+    print(f"mesh: launches {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, errs, {"merge": times}
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2869,6 +3382,8 @@ def main() -> int:
                  pieces=pieces, merge_windows=merge_windows,
                  host=run_host(args.seed, args.engine_mb),
                  auto=run_auto(args.seed, args.engine_mb, "cuda"))
+    paths["mesh"], mesh_errs, mesh_times = run_mesh(args.seed,
+                                                    args.engine_mb, "cuda")
     for r in rows:
         name = r["name"]
         by_path = {p: v.get(name, 0) for p, v in paths.items()}
@@ -2876,10 +3391,12 @@ def main() -> int:
         r["launches_by_path"] = by_path
         r["max_abs_err"] = max(r["max_abs_err"], engine_errs.get(name, 0),
                                resident_errs.get(name, 0),
-                               grid_errs.get(name, 0))
+                               grid_errs.get(name, 0),
+                               mesh_errs.get(name, 0))
         more = {**resident_times.get(name, {}),
                 **engine_times.get(name, {}),
                 **grid_times.get(name, {}),
+                **mesh_times.get(name, {}),
                 **(k1_group_times if name == "piece_starts" else {})}
         for k, v in by_shape(more).items():
             r.setdefault(k, {}).update(v)

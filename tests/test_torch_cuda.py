@@ -830,3 +830,88 @@ def test_resident_device_time_from_trace(dev, kw):
         assert c["events"] == c["launches"] > 0, name
     assert set(r.stage_us) == set(r.event_us)
     assert 0 < r.device_ms <= r.event_ms
+
+
+def _mesh_case(seed: int):
+    """A reachable vocabulary (tiny), an 11 KB multi-script text and the
+    mesh pipeline's general+hot configuration on 4 windows of 32 KB."""
+    from conftest import make_tiny_vocab
+    import torch_resident_mesh_util as U
+
+    ranks = make_tiny_vocab()[0]
+    rng = np.random.default_rng(seed)
+    text = (multiscript_text(rng, 6000) + prose_text(rng, 5000)).encode()
+    cfgs = U.configs(ranks, seed)
+    return ranks, text, cfgs, U
+
+
+def test_sharded_text_one_rank_nccl_equals_host(dev):
+    """get_mesh(1) on the card: one NCCL rank; ShardedTextEncoder at
+    2 KB shards equals the host engine and the CPU mesh."""
+    from conftest import make_tiny_vocab
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, DeviceEngine, HostEngine
+    from tokendagger_tpu_torch.parallel.mesh import get_mesh
+    from tokendagger_tpu_torch.parallel.sharded_text import ShardedTextEncoder
+
+    ranks = make_tiny_vocab()[0]
+    rng = np.random.default_rng(21)
+    text = multiscript_text(rng, 30000) + prose_text(rng, 30000)
+    mesh = get_mesh(1)
+    assert mesh.device.type == "cuda" and mesh.size == 1
+    outs = []
+    for m, d in ((mesh, mesh.device), (get_mesh(1, device="cpu"), "cpu")):
+        eng = DeviceEngine(LLAMA4_PATTERN, ranks, {}, device=d)
+        st = ShardedTextEncoder(eng, m, shard_bytes=2048, halo=512)
+        outs.append((st.encode(text.encode()).tolist(), st.passes,
+                     st.fallbacks))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == HostEngine(LLAMA4_PATTERN, ranks,
+                                    {}).encode_ordinary(text)
+
+
+@pytest.mark.parametrize("name", ["ascii", "general+hot"])
+def test_mesh_pipeline_card_equals_cpu(dev, name):
+    """mesh_resident_pipeline over get_mesh(1) on the card (K1, K2+K3,
+    K4; K9, K5-K8 on the general path) equals the same pipeline on the
+    CPU, all 11 outputs."""
+    from tokendagger_tpu_torch.convert import tables_from_ranks
+    from tokendagger_tpu_torch.parallel.mesh import get_mesh, shard_rows
+    from tokendagger_tpu_torch.parallel.resident_mesh import (
+        mesh_resident_pipeline,
+    )
+
+    ranks, _, cfgs, U = _mesh_case(3)
+    kw, wins, nbs = cfgs[name]
+    outs = []
+    for mesh in (get_mesh(1), get_mesh(1, device="cpu")):
+        fn = mesh_resident_pipeline(
+            mesh, tables_from_ranks(ranks, device=mesh.device), None, None,
+            window=U.WINDOW, p_cap=U.P_CAP, **kw)
+        outs.append([x.cpu().numpy()
+                     for x in fn(*shard_rows(mesh, wins, nbs))])
+    U.assert_equal(*outs)
+    U.assert_host(ranks, cfgs[name], outs[0])
+
+
+def test_mesh_two_cards_equal_cpu(dev, tmp_path):
+    """Two ranks on two cards over NCCL: the sharded text's ids and the
+    mesh pipeline's outputs equal one CPU rank's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    import torch_mesh_workers
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine
+
+    ranks, text, cfgs, U = _mesh_case(4)
+    names = ("ascii", "general+hot")
+    pair = torch_mesh_workers.spawn(
+        2, tmp_path, "card_pair", ranks=ranks, text=text, window=U.WINDOW,
+        p_cap=U.P_CAP, configs=[cfgs[n] for n in names])
+    want = HostEngine(LLAMA4_PATTERN, ranks, {}).encode_ordinary(
+        text.decode())
+    for r in pair:
+        assert r["ids"].tolist() == want and r["fallbacks"] == 0
+    for i, n in enumerate(names):
+        got = [np.concatenate([a, b]) for a, b in zip(
+            pair[0]["mesh"][i][:9], pair[1]["mesh"][i][:9])] + list(
+            pair[0]["mesh"][i][9:])
+        U.assert_equal(got, U.port_d1(ranks, cfgs[n]))

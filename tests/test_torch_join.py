@@ -214,3 +214,81 @@ def test_vocab_probe_hot_colliding_hashes(monkeypatch):
     TJ._hot_table.cache_clear()
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+
+
+def _probe_queries(ranks, seed):
+    """Key words/lengths of vocab tokens of at most 16 bytes (hits),
+    non-tokens (misses), the same words as a hit at another length
+    (length-only differences) and dead slots."""
+    rng = np.random.default_rng(seed)
+    toks = [t for t in ranks if len(t) <= 16]
+    hits = [toks[int(i)] for i in rng.integers(len(toks), size=300)]
+    pieces = [(p, len(p)) for p in hits]
+    pieces += [(rng.integers(32, 127, int(rng.integers(1, 17))).astype(
+        np.uint8).tobytes(), None)
+               for _ in range(200)]
+    pieces += [(p, len(p) + d) for p in hits[:60] for d in (-1, 1)
+               if len(p) + d > 0]
+    pieces += [(b"", 0)] * 10
+    qk = np.zeros((len(pieces), 4), np.uint32)
+    ql = np.zeros(len(pieces), np.int32)
+    for i, (p, n) in enumerate(pieces):
+        buf = np.zeros(16, np.uint8)
+        buf[: len(p)] = np.frombuffer(p, np.uint8)
+        qk[i] = buf.view("<u4")
+        ql[i] = len(p) if n is None else n
+    return qk, ql
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_vocab_probe_equals_jax_and_oracles(table, seed):
+    """The 4-slot two-gather probe against the JAX ``vocab_probe`` and
+    both numpy oracles (the port's copies equal the JAX package's)."""
+    from tokendagger_tpu_torch import tables as TT
+
+    ranks, _, t = table
+    qk, ql = _probe_queries(ranks, seed)
+    rows, mask = TT.build_vocab_hash(*TT.vocab_keys(ranks))
+    assert np.array_equal(rows, t.vhash_rows) and mask == t.vhash_mask
+    want = np.asarray(JJ.vocab_probe(
+        *(jnp.asarray(qk[:, j]) for j in range(4)), jnp.asarray(ql),
+        jnp.asarray(t.vhash_rows), t.vhash_mask))
+    qi = qk.view(np.int32)
+    got = TJ.vocab_probe(
+        *(torch.from_numpy(qi[:, j].copy()) for j in range(4)),
+        torch.from_numpy(ql), torch.from_numpy(rows), mask).numpy()
+    assert got.dtype == np.int32
+    assert np.array_equal(got, want)
+    oracle = TJ.vocab_probe_np(qk, ql, rows, mask)
+    assert np.array_equal(oracle, want)
+    assert np.array_equal(oracle, JJ.vocab_probe_np(qk, ql, rows, mask))
+    # every token of at most 16 bytes is found: no slot is dropped
+    assert (got[:300] >= 0).all()
+    expect = np.asarray([ranks.get(bytes(qk[i].view(np.uint8)[: ql[i]]), -1)
+                         if ql[i] <= 16
+                         and (qk[i].view(np.uint8)[ql[i]:] == 0).all() else -1
+                         for i in range(len(ql))])
+    assert np.array_equal(got, expect)
+    # the 8-slot oracle, against the port's probe and the JAX oracle
+    o8 = TJ.vocab_probe8_np(qk, ql, t.vhash8_rows, t.vhash8_mask)
+    assert np.array_equal(o8, JJ.vocab_probe8_np(qk, ql, t.vhash8_rows,
+                                                 t.vhash8_mask))
+    assert np.array_equal(o8, TJ.vocab_probe8(
+        *(torch.from_numpy(qi[:, j].copy()) for j in range(4)),
+        torch.from_numpy(ql), torch.from_numpy(t.vhash8_rows),
+        t.vhash8_mask).numpy())
+
+
+def test_vocab_probe_takes_uint32_values_in_int64(table):
+    from tokendagger_tpu_torch import tables as TT
+
+    ranks, _, _ = table
+    qk, ql = _probe_queries(ranks, 2)
+    rows, mask = TT.build_vocab_hash(*TT.vocab_keys(ranks))
+    as_i32 = TJ.vocab_probe(
+        *(torch.from_numpy(qk.view(np.int32)[:, j].copy()) for j in range(4)),
+        torch.from_numpy(ql), torch.from_numpy(rows), mask)
+    as_i64 = TJ.vocab_probe(
+        *(torch.from_numpy(qk[:, j].astype(np.int64)) for j in range(4)),
+        torch.from_numpy(ql), torch.from_numpy(rows), mask)
+    assert torch.equal(as_i32, as_i64)

@@ -87,8 +87,10 @@ def test_port_imports_no_jax():
     names = {f.name for f in files}
     for new in ("engine.py", "wrapper.py", "streaming.py", "pretokenize.py",
                 "decode.py", "resident.py", "profiling.py", "merge.py",
-                "fused.py", "join.py"):
+                "fused.py", "join.py", "mesh.py", "sharded_text.py",
+                "resident_mesh.py", "windows.py", "tables.py"):
         assert new in names, new
+    assert REPO / "tokendagger_tpu_torch" / "parallel" / "__init__.py" in files
     assert REPO / "tokendagger_tpu_torch" / "native" / "__init__.py" in files
     assert len(files) > 15
     for f in files:
@@ -108,7 +110,13 @@ def test_port_import_loads_no_jax():
             "tokendagger_tpu_torch.ops.fused, "
             "tokendagger_tpu_torch.resident, "
             "tokendagger_tpu_torch.native, "
-            "tokendagger_tpu_torch.utils.profiling; "
+            "tokendagger_tpu_torch.utils.profiling, "
+            "tokendagger_tpu_torch.utils.windows, "
+            "tokendagger_tpu_torch.tables, tokendagger_tpu_torch.ops.join, "
+            "tokendagger_tpu_torch.parallel, "
+            "tokendagger_tpu_torch.parallel.mesh, "
+            "tokendagger_tpu_torch.parallel.sharded_text, "
+            "tokendagger_tpu_torch.parallel.resident_mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tokendagger_tpu', 'regex')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -85,3 +85,97 @@ def test_stream_runs_on_converted_tables(collide):
                            device="cpu", tables=t).encode(text)[0]
             for t in (None, conv)]
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the 4-slot two-choice table and the merge-reachability audit
+# ---------------------------------------------------------------------------
+
+
+def _growth_vocab():
+    """256 bytes, 13 four-byte tokens whose both bucket choices fall in
+    three buckets of the first (1,024-bucket) table, so its 12 slots
+    overflow and the build must grow, and random filler to ~1,000."""
+    rng = np.random.default_rng(11)
+    k0 = np.unique(rng.integers(0, 2**32, 3_000_000, dtype=np.uint64)
+                   ).astype(np.uint32)
+    z = np.zeros_like(k0)
+    a, b = TT._vhash_ab(k0, z, z, z, np.full(len(k0), 4, np.int32))
+    h0, h1 = TT._mix_hash(a, b, 0, 1023), TT._mix_hash(a, b, 1, 1023)
+    both = np.isin(h0, (1, 2, 3)) & np.isin(h1, (1, 2, 3))
+    crowd = [int(w).to_bytes(4, "little") for w in k0[both][:13]]
+    assert len(crowd) == 13
+    ranks = {bytes([i]): i for i in range(256)}
+    for tok in crowd:
+        ranks.setdefault(tok, len(ranks))
+    for w in k0[-700:]:
+        ranks.setdefault(int(w).to_bytes(4, "little"), len(ranks))
+    return ranks
+
+
+@pytest.mark.parametrize("vocab", ["tiny", "collision", "growth"])
+def test_vocab_hash_equals_jax(vocab):
+    ranks = {"tiny": lambda: make_tiny_vocab()[0],
+             "collision": lambda: collision_vocab()[0],
+             "growth": _growth_vocab}[vocab]()
+    want = JT.build_tables(ranks, {}, use_cache=False)
+    rows, mask = TT.build_vocab_hash(*TT.vocab_keys(ranks))
+    assert rows.dtype == np.int32 and rows.shape == (mask + 1, 24)
+    assert np.array_equal(rows, want.vhash_rows)
+    assert mask == want.vhash_mask
+    if vocab == "growth":   # 1,024 buckets at first, then grown
+        assert len(ranks) < 1536 and mask > 1023
+
+
+def test_audit_equals_jax():
+    tiny = make_tiny_vocab()[0]
+    bad = {**tiny, b"zqx": 900, b"qzv": 901}   # no merge makes them
+    for ranks, want in ((tiny, True), (bad, False)):
+        assert TT.all_reachable(ranks) is want
+        assert JT.build_tables(ranks, {}, use_cache=False).all_reachable \
+            is want
+    assert list(TT.unreachable(bad)) == [b"zqx", b"qzv"]
+    assert list(TT.unreachable(tiny)) == []
+    # a byte without a rank makes its tokens unreachable
+    assert list(TT.unreachable({b"a": 0, b"ab": 1})) == [b"ab"]
+
+
+def test_engine_audit_runs_once(monkeypatch):
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, DeviceEngine
+    from tokendagger_tpu_torch import engine as TE
+
+    calls = []
+    monkeypatch.setattr(TE, "all_reachable",
+                        lambda r: calls.append(1) or True)
+    eng = DeviceEngine(LLAMA4_PATTERN, make_tiny_vocab()[0], {},
+                       device="cpu")
+    assert calls == []        # construction does not pay for it
+    assert eng.all_reachable() and eng.all_reachable()
+    assert calls == [1]
+
+
+def test_sharded_encoder_guards_equal_jax():
+    """ShardedTextEncoder raises ValueError where the JAX package's does:
+    an engine on the piece path, a vocabulary that is not reachable."""
+    from tokendagger_tpu.engine import DeviceEngine as JaxEngine
+    from tokendagger_tpu.parallel.mesh import get_mesh as jax_mesh
+    from tokendagger_tpu.parallel.sharded_text import (
+        ShardedTextEncoder as JaxSharded,
+    )
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, DeviceEngine
+    from tokendagger_tpu_torch.parallel.mesh import get_mesh
+    from tokendagger_tpu_torch.parallel.sharded_text import (
+        ShardedTextEncoder,
+    )
+
+    tiny = make_tiny_vocab()[0]
+    cases = ((r"\S+|\s+", tiny),                          # piece path
+             (LLAMA4_PATTERN, {**tiny, b"zqx": 900}))      # unreachable
+    for pattern, ranks in cases:
+        with pytest.raises(ValueError):
+            JaxSharded(JaxEngine(pattern, ranks, {}), jax_mesh(1))
+        eng = DeviceEngine(pattern, ranks, {}, device="cpu")
+        with pytest.raises(ValueError):
+            ShardedTextEncoder(eng, get_mesh(1, device="cpu"))
+    ShardedTextEncoder(DeviceEngine(LLAMA4_PATTERN, tiny, {}, device="cpu"),
+                       get_mesh(1, device="cpu"))

@@ -78,6 +78,7 @@ from .ops.join import vocab_probe8
 from .ops.merge import merge_rows
 from .ops.pretokenize import starts_to_bytes, utf8_decode
 from .streaming import _safe_cut_chars, coarse_classes
+from .tables import all_reachable
 from .vocab import classify_pattern
 
 # Window shapes: every device call uses one of these lengths.
@@ -178,6 +179,7 @@ class DeviceEngine:
         self.miss_mode = "host"
         self.join_mode = "probe"
         self._merge: MergeTables | None = None
+        self._all_reachable: bool | None = None
         if tables is None:
             tables = engine_tables_from_ranks(
                 self.ranks, special_tokens, device=self.device)
@@ -207,6 +209,16 @@ class DeviceEngine:
                 self._merge = merge_tables_from_ranks(self.ranks,
                                                       device=self.device)
             return self._merge
+
+    def all_reachable(self) -> bool:
+        """The vocabulary's merge-reachability audit
+        (``tables.all_reachable``), run at the first call under the lock
+        and kept: seconds for a 200,000-token vocabulary, which engine
+        construction does not pay."""
+        with self._lock:
+            if self._all_reachable is None:
+                self._all_reachable = all_reachable(self.ranks)
+            return self._all_reachable
 
     # ==================================================================
     # Stream path (fixed-shape windowed scanning)

@@ -16,6 +16,11 @@ vocabulary's whole-piece keys (``join_mode="sort"``): the JAX package runs
 it as ``lax.sort`` plus an ``associative_scan``, with no Pallas kernel, so
 the port runs it with ``torch.sort``.
 
+``vocab_probe`` is the same lookup against the 4-slot, two-choice table
+of ``tables.build_vocab_hash``: two 96-byte row gathers per piece. No
+path reads it; ``vocab_probe8_np`` and ``vocab_probe_np`` are numpy
+oracles of both probes, for tests.
+
 ``vocab_probe_hot`` answers a host-chosen set of hot pieces by compare and
 probes only the rest, compacted to a dense prefix by kernel K5+K6 and put
 back by K7+K8 (``compact.compact_record`` / ``expand_route``).
@@ -92,6 +97,65 @@ def vocab_probe8(qk0, qk1, qk2, qk3, qlen, rows: torch.Tensor,
         hit &= r[..., 8 * j : 8 * j + 8] == q.to(torch.int32)[..., None]
     ranks = torch.where(hit, r[..., 40:48], -1)
     return ranks.amax(dim=-1).to(torch.int32)
+
+
+def vocab_probe(qk0, qk1, qk2, qk3, qlen, rows: torch.Tensor,
+                mask: int) -> torch.Tensor:
+    """Rank of each piece whose key words and length match a slot of its
+    first or second bucket row, else -1: the JAX ``join.vocab_probe``.
+    Keys are int32 tensors (uint32 bits) or int64 holding uint32 values,
+    ``qlen`` int32, ``rows`` the (nb, 24) int32 table of
+    ``tables.build_vocab_hash`` on the same device; any leading shape."""
+    a, b = vhash_ab(qk0, qk1, qk2, qk3, qlen)
+    keys = [to_i32(u32(q)) for q in (qk0, qk1, qk2, qk3)] + [
+        qlen.to(torch.int32)]
+    out = torch.full(qk0.shape, -1, dtype=torch.int32, device=qk0.device)
+    for which in (0, 1):
+        r = rows[_mix(a, b, which, mask)]                # (..., 24)
+        hit = torch.ones(r.shape[:-1] + (4,), dtype=torch.bool,
+                         device=r.device)
+        for j, q in enumerate(keys):
+            hit &= r[..., 4 * j : 4 * j + 4] == q[..., None]
+        vals = torch.where(hit, r[..., 20:24], -1).amax(dim=-1)
+        out = torch.where((out < 0) & (vals >= 0), vals, out)
+    return out.to(torch.int32)
+
+
+def vocab_probe8_np(qk, qlen, vhash8_rows, vhash8_mask):
+    """Numpy reference of ``vocab_probe8``: ``qk`` (P, 4) uint32 key
+    words, ``qlen`` (P,) int32 (for tests)."""
+    from ..tables import _mix_hash, _vhash_ab
+
+    a, b = _vhash_ab(qk[:, 0], qk[:, 1], qk[:, 2], qk[:, 3], qlen)
+    h = _mix_hash(a, b, 0, vhash8_mask)
+    r = vhash8_rows[h]
+    ik = qk.view(np.int32).reshape(len(qlen), 4)
+    hit = (
+        (r[:, 0:8] == ik[:, 0:1]) & (r[:, 8:16] == ik[:, 1:2])
+        & (r[:, 16:24] == ik[:, 2:3]) & (r[:, 24:32] == ik[:, 3:4])
+        & (r[:, 32:40] == qlen[:, None])
+    )
+    return np.where(hit, r[:, 40:48], -1).max(axis=1)
+
+
+def vocab_probe_np(qk, qlen, vhash_rows, vhash_mask):
+    """Numpy reference of ``vocab_probe`` (for tests)."""
+    from ..tables import _mix_hash, _vhash_ab
+
+    a, b = _vhash_ab(qk[:, 0], qk[:, 1], qk[:, 2], qk[:, 3], qlen)
+    out = np.full(len(qlen), -1, np.int32)
+    ik = qk.view(np.int32).reshape(len(qlen), 4)
+    for which in (0, 1):
+        h = _mix_hash(a, b, which, vhash_mask)
+        r = vhash_rows[h]
+        hit = (
+            (r[:, 0:4] == ik[:, 0:1]) & (r[:, 4:8] == ik[:, 1:2])
+            & (r[:, 8:12] == ik[:, 2:3]) & (r[:, 12:16] == ik[:, 3:4])
+            & (r[:, 16:20] == qlen[:, None])
+        )
+        vals = np.where(hit, r[:, 20:24], -1).max(axis=1)
+        out = np.where((out < 0) & (vals >= 0), vals, out)
+    return out
 
 
 def piece_key_words(piece: bytes) -> tuple[int, int, int, int, int]:

@@ -216,6 +216,82 @@ def _hot_codepoints(win_bytes, N: int, c_cap: int):
     return None, None, c_cap
 
 
+def probe_ranks(k0, k1, k2, k3, pl, rows, vmask, probe_hot_cfg=None):
+    """The whole-piece probe: (rank, None) from ``vocab_probe8``, or with
+    a hot-piece config {hot_keys, hot_ranks, u_cap} ``vocab_probe_hot``'s
+    (rank, overflow)."""
+    if probe_hot_cfg is None:
+        return vocab_probe8(k0, k1, k2, k3, pl, rows, vmask), None
+    return vocab_probe_hot(
+        k0, k1, k2, k3, pl, rows, vmask,
+        hot_keys=probe_hot_cfg["hot_keys"],
+        hot_ranks=probe_hot_cfg["hot_ranks"],
+        u_cap=probe_hot_cfg["u_cap"])
+
+
+def _or_overflow(out: tuple, flags) -> tuple:
+    """finalize's 9-tuple with each (B,) overflow flag of ``flags`` that
+    is not None ORed into [5]."""
+    for ovf in flags:
+        if ovf is not None:
+            out = out[:5] + (out[5] | ovf,) + out[6:]
+    return out
+
+
+def batch_pipeline(d: torch.Tensor, nb: torch.Tensor, *, impl: str,
+                   p_cap: int, rows: torch.Tensor, vmask: int,
+                   profile: str = "llama4", c_cap: int | None = None,
+                   packed: bool = True, hot_cps=None,
+                   u_cap: int | None = None, probe_hot_cfg=None,
+                   stage=contextlib.nullcontext):
+    """The batched pipelines built from K2+K3 and ``compact.finalize``,
+    on (B, N) uint8 complete windows and their (B,) int32 lengths, each
+    stage inside ``stage(name)``; ``run_resident`` and
+    ``parallel/resident_mesh`` run them.
+
+    * impl "general" (any UTF-8): ``utf8_decode_tiles`` to ``c_cap``
+      chars (K9, K5+K6), ``piece_starts_chars`` (K1's codepoint entry,
+      or with ``hot_cps`` and ``u_cap`` the hot-codepoint classes and its
+      class-word entry), ``expand_starts_replay`` (K7+K8) and
+      ``compact_piece_keys`` on byte flags (K2+K3);
+    * impl "ascii" (every byte below the length ASCII, N % 1024 == 0):
+      ``piece_starts_bits`` (K1's byte entry) and ``compact_piece_keys``
+      on its plane words when ``packed``, else on byte flags;
+
+    then ``probe_ranks`` (``probe_hot_cfg``: the hot-piece route, K5+K6
+    and K7+K8) and ``compact.finalize`` (K4). Returns finalize's 9-tuple
+    with both hot routes' overflow flags ORed into [5]."""
+    cls_ovf = None
+    if impl == "general":
+        with stage("decode"):
+            cp, lead, m, route = utf8_decode_tiles(d, nb, c_cap=c_cap)
+        with stage("starts"):
+            if hot_cps is not None:
+                st_c, cls_ovf = piece_starts_chars(
+                    cp, m, profile=profile, hot_cps=hot_cps, u_cap=u_cap)
+            else:
+                st_c = piece_starts_chars(cp, m, profile=profile)
+        with stage("expand"):
+            starts = expand_starts_replay(st_c, lead, route)
+        with stage("compact"):
+            keys = compact_piece_keys(starts, d, nb, p_cap)
+    elif impl == "ascii":
+        with stage("starts"):
+            starts = piece_starts_bits(d, nb, profile=profile,
+                                       packed_out=packed)
+        with stage("compact"):
+            keys = compact_piece_keys(starts, d, nb, p_cap, packed=packed)
+    else:
+        raise ValueError(f"impl must be 'general' or 'ascii', got {impl!r}")
+    sb, pl, k0, k1, k2, k3, npc = keys
+    with stage("probe"):
+        rank, p_ovf = probe_ranks(k0, k1, k2, k3, pl, rows, vmask,
+                                  probe_hot_cfg)
+    with stage("finalize"):
+        out = finalize(sb, pl, rank, npc, p_cap=p_cap)
+    return _or_overflow(out, [cls_ovf, p_ovf])
+
+
 def _traced_stage_us(pipeline, wins, reps: int) -> tuple[dict, dict]:
     """``reps`` repetitions of ``pipeline`` under a profiler trace, each
     stage in a ``record_function`` range: the device µs each stage
@@ -364,16 +440,6 @@ def run_resident(
     mt = (merge_tables_from_ranks(ranks, device=dev)
           if miss_mode != "host" else None)
 
-    def probe(k0, k1, k2, k3, pl):
-        """rank, and the hot route's overflow flags (or None)."""
-        if probe_hot_cfg is None:
-            return vocab_probe8(k0, k1, k2, k3, pl, rows, vmask), None
-        return vocab_probe_hot(
-            k0, k1, k2, k3, pl, rows, vmask,
-            hot_keys=probe_hot_cfg["hot_keys"],
-            hot_ranks=probe_hot_cfg["hot_ranks"],
-            u_cap=probe_hot_cfg["u_cap"])
-
     # ---- the reference's stage choices (resident.py:344-365, 396-609) --
     def decode(d, nb):
         if impl == "ascii-sort":
@@ -414,51 +480,31 @@ def run_resident(
         """One batch (a (1, N) window when batch=1) through the stages,
         each inside ``stage(name)``. Returns finalize's 9-tuple with
         every overflow ORed into [5]."""
-        flags = []
-        if general:
-            with stage("decode"):
-                cp, lead, m, route = utf8_decode_tiles(d, nb, c_cap=c_cap)
-            with stage("starts"):
-                if hot_cps is not None:
-                    st_c, cls_ovf = piece_starts_chars(
-                        cp, m, profile=profile, hot_cps=hot_cps,
-                        u_cap=u_cap)
-                    flags.append(cls_ovf)
-                else:
-                    st_c = piece_starts_chars(cp, m, profile=profile)
-            with stage("expand"):
-                starts = expand_starts_replay(st_c, lead, route)
-            with stage("compact"):
-                keys = compact_piece_keys(starts, d, nb, p_cap)
-        elif fused_ascii:
-            with stage("starts"):
-                words = piece_starts_bits(d, nb, profile=profile)
-            with stage("compact"):
-                keys = compact_piece_keys(words, d, nb, p_cap, packed=True)
-        else:
-            with stage("decode"):
-                cp, cob, boc, m = decode(d, nb)
-            with stage("starts"):
-                starts = starts_of(cp, m)
-            if miss_mode != "host":
-                with stage("resolve"):
-                    return resolve_window(
-                        starts, boc, d, nb, N, mt.byte_rank, mt.pair_rows,
-                        mt.pair_lut, mt.vk, mt.vlen, mt.vrank, rows,
-                        mask=mt.pair_mask, vhash_mask=vmask,
-                        join_mode=join_mode, miss_mode=miss_mode, **caps)
-            with stage("compact"):
-                keys = compact_of(starts, cob, boc, d, nb)
-        sb, pl, k0, k1, k2, k3, npc = keys
+        if general or fused_ascii:
+            return batch_pipeline(
+                d, nb, impl="general" if general else "ascii", p_cap=p_cap,
+                rows=rows, vmask=vmask, profile=profile, c_cap=c_cap,
+                hot_cps=hot_cps, u_cap=u_cap, probe_hot_cfg=probe_hot_cfg,
+                stage=stage)
+        with stage("decode"):
+            cp, cob, boc, m = decode(d, nb)
+        with stage("starts"):
+            starts = starts_of(cp, m)
+        if miss_mode != "host":
+            with stage("resolve"):
+                return resolve_window(
+                    starts, boc, d, nb, N, mt.byte_rank, mt.pair_rows,
+                    mt.pair_lut, mt.vk, mt.vlen, mt.vrank, rows,
+                    mask=mt.pair_mask, vhash_mask=vmask,
+                    join_mode=join_mode, miss_mode=miss_mode, **caps)
+        with stage("compact"):
+            sb, pl, k0, k1, k2, k3, npc = compact_of(starts, cob, boc, d, nb)
         with stage("probe"):
-            rank, p_ovf = probe(k0, k1, k2, k3, pl)
+            rank, p_ovf = probe_ranks(k0, k1, k2, k3, pl, rows, vmask,
+                                      probe_hot_cfg)
         with stage("finalize"):
             out = finalize_of(sb, pl, rank, npc)
-        if p_ovf is not None:
-            flags.append(p_ovf)
-        for ovf in flags:
-            out = out[:5] + (out[5] | ovf,) + out[6:]
-        return out
+        return _or_overflow(out, [p_ovf])
 
     # every window on the device before timing: one batch of ``batch``
     # windows, or each window alone, cycled through (resident.py:701)

@@ -17,13 +17,21 @@ token, as a two-choice bucketed hash whose lookup reads at most two
 48-byte rows. ``byte_rank`` gives the first ids and ``pair_lut`` the
 first-round ranks of byte pairs. All are bit-identical to the JAX
 package's ``tables.build_tables`` fields.
+
+``build_vocab_hash`` is the JAX package's 4-slot, two-choice whole-piece
+table (``tables._build_vocab_hash``), read by ``ops/join.vocab_probe``;
+no path builds it. ``all_reachable`` is the merge-reachability audit
+that ``parallel/sharded_text.ShardedTextEncoder`` requires.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
+
+from .hostengine import byte_pair_encode
 
 MAX_RANK = np.int32(0x7FFFFFFF)
 BUCKET = 4  # slots per pair-table bucket
@@ -82,6 +90,65 @@ def _build_vocab_hash8(vocab_keys: np.ndarray, vocab_lens: np.ndarray,
     slots[bkt, sl, 5] = vocab_ranks[idx]
     rows = slots.transpose(0, 2, 1).reshape(nbuckets, 48).copy()
     return rows, mask, int(n - accept.sum())
+
+
+def build_vocab_hash(vocab_keys: np.ndarray, vocab_lens: np.ndarray,
+                     vocab_ranks: np.ndarray):
+    """Two-choice bucketed hash over whole-piece keys, with the insertion
+    strategy of ``PairTable.build``: (rows (nb, 24) int32, mask). Rows
+    are slot-major, 4 slots x [k0, k1, k2, k3, len, rank]
+    ([k0 x4][k1 x4]...[rank x4]); empty slots have len == -1.
+    Bit-identical to the JAX package's ``tables._build_vocab_hash``."""
+    n = len(vocab_lens)
+    a_all, b_all = _vhash_ab(
+        vocab_keys[:, 0], vocab_keys[:, 1], vocab_keys[:, 2],
+        vocab_keys[:, 3], vocab_lens,
+    )
+    nbuckets = 1 << max(10, int(np.ceil(np.log2(max(1, n) / 1.5))))
+    for _attempt in range(3):
+        mask = nbuckets - 1
+        slots = np.zeros((nbuckets, 4, 6), dtype=np.int32)
+        slots[:, :, 4] = -1  # len == -1 marks empty
+        fill = np.zeros(nbuckets, dtype=np.int64)
+        remaining = np.arange(n)
+        for which in (0, 1):
+            if len(remaining) == 0:
+                break
+            h = _mix_hash(a_all[remaining], b_all[remaining], which, mask)
+            order, slot = _bucket_slots(h, fill)
+            hs = h[order]
+            accept = slot < 4
+            idx = remaining[order][accept]
+            bkt, sl = hs[accept], slot[accept]
+            slots[bkt, sl, 0:4] = vocab_keys[idx].view(np.int32)
+            slots[bkt, sl, 4] = vocab_lens[idx]
+            slots[bkt, sl, 5] = vocab_ranks[idx]
+            np.add.at(fill, bkt, 1)
+            remaining = remaining[order][~accept]
+        if len(remaining) == 0:
+            return slots.transpose(0, 2, 1).reshape(nbuckets, 24).copy(), mask
+        nbuckets <<= 1  # a bucket overflowed: grow, retry
+    raise RuntimeError("vocab hash table build failed after growth retries")
+
+
+def unreachable(ranks: dict[bytes, int]) -> Iterator[bytes]:
+    """Each multi-byte token that the BPE merge of its own bytes does not
+    produce (or that holds a byte without a rank), in ``ranks``' order:
+    one Python merge per token, seconds for a 200,000-token vocabulary."""
+    for tb, rank in ranks.items():
+        if len(tb) < 2:
+            continue
+        if (any(bytes([b]) not in ranks for b in tb)
+                or byte_pair_encode(tb, ranks) != [rank]):
+            yield tb
+
+
+def all_reachable(ranks: dict[bytes, int]) -> bool:
+    """The merge-reachability audit of the JAX package's ``build_tables``
+    (``DeviceTables.all_reachable``): every multi-byte token is the merge
+    of its bytes, so a merge-only encoder equals tiktoken's
+    lookup-then-merge."""
+    return next(unreachable(ranks), None) is None
 
 
 def vocab_keys(ranks: dict[bytes, int]):

@@ -30,6 +30,20 @@ def char_align(arr: np.ndarray) -> np.ndarray:
     return arr[:e]
 
 
+def tile_windows(corpus: bytes, window: int, n_windows: int):
+    """n_windows char-aligned fixed-shape windows tiled (with wraparound
+    strides) over the corpus. Returns (wins (n, window) uint8, nbs (n,)
+    int32)."""
+    wins = np.zeros((n_windows, window), np.uint8)
+    nbs = np.zeros((n_windows,), np.int32)
+    for b in range(n_windows):
+        lo = (b * window) % max(1, len(corpus) - window)
+        arr = char_align(np.frombuffer(corpus[lo : lo + window], np.uint8))
+        wins[b, : len(arr)] = arr
+        nbs[b] = len(arr)
+    return wins, nbs
+
+
 def stream_windows(corpus: bytes, window: int) -> list[np.ndarray]:
     """Sequential char-aligned cover of the corpus: each window advances
     by its trimmed length, so no byte is lost or duplicated."""
