@@ -3,7 +3,9 @@
     python3 chip_smoke.py [--seed 0] [--mb 16] [--engine-mb 12]
 
 1. Builds the CUDA kernels of tokendagger_tpu_torch (one nvcc per source,
-   in parallel) and prints the card, its power limit and the build time.
+   in parallel, with the merge kernel as it was before its redesign for
+   step 8's yardstick) and prints the card, its power limit and the
+   build time.
 2. Holds each kernel of the ASCII window pipeline against its plain torch
    version on the card, at that path's shapes (8 windows of 1 MB,
    p_cap 349,568), on seeded ASCII windows plus edge cases (an empty
@@ -103,13 +105,21 @@
    on the engine phase's stand-in vocabulary, whose pair table's bucket
    count and bytes on the card it prints:
    * the merge kernel against the plain loop on the card at the piece
-     path's shapes (8,192 rows of 16, 64 and 256 bytes) and at
+     path's shapes (8,192 rows of 16, 64 and 256 bytes), at
      resolve_window's 4 MB bucket caps (262,144 x 16, 32,768 x 64,
-     4,096 x 256), with and without pair_lut, on seeded random printable
-     rows and edge rows (lengths 0, 1 and W, runs of one byte, bytes
-     without ranked pairs); each shape timed as above beside its bytes
-     bound and its latency floor (the longest row's merges times one
-     dependent L2 read, measured by a pointer chase);
+     4,096 x 256) and at the mesh's (262,144 x 64, 131,072 x 64), with
+     and without pair_lut, on seeded random printable rows and edge rows
+     (lengths 0, 1 and W, runs of one byte, bytes without ranked pairs);
+     then on edge calls: R = 1, one row past a block at each lane count,
+     both sides of the lane-count steps, at widths 1-256, on the
+     stand-in's tables and on a chain vocabulary whose rows merge W - 1
+     times, with lengths 0 and 1 between long rows (each call must count
+     one launch); each shape timed as above beside its bytes bound, its
+     latency floor (the longest row's merges times one dependent L2
+     read, measured by a pointer chase), the lanes the kernel gives a row
+     and the merge kernel as it was before its redesign (one warp a row,
+     MERGE_BEFORE_CU, built beside the package's kernels; timed in turns
+     on the same inputs: "before_ms");
    * the piece path, DeviceEngine(stream=False), over 4.5 MB of
      multi-script text with seeded rare identifiers, with vocab_fastpath
      True and False (every unique multi-byte piece merges on the card) and
@@ -165,7 +175,8 @@
    * ``sharded_encode_step`` and ``sharded_encode_step_2d`` at (1, 1) on
      262,144 rows of 64 B of the engine text's pretokens: every row's
      tokens equal ``byte_pair_encode``, both counters the totals; the
-     merge kernel held against its plain loop on those rows and timed;
+     merge kernel held against its plain loop on those rows and timed
+     (beside the kernel before its redesign, as in step 8);
    * ``ShardedTextEncoder`` (128 KB shards, 16 KB halo) over 16 MB of
      multi-script text: ids equal to the native host engine's, no
      fallback; prints passes, the wall rate, the audit's time and the
@@ -777,7 +788,8 @@ def check_engine_kernels(seed: int, dev) -> list[dict]:
 
 SHAPE_KEYS = ("ms", "call_ms", "plain_ms", "bound_ms", "blocks_per_window",
               "library_ms", "launches_per_call", "merges",
-              "longest_row_merges")
+              "longest_row_merges", "latency_floor_ms", "before_ms",
+              "lanes_per_row")
 
 
 def by_shape(times: dict) -> dict:
@@ -2288,7 +2300,204 @@ def run_auto(seed: int, mb: int, dev) -> dict:
 
 MERGE_SHAPES = (("piece", 8192, 16), ("piece", 8192, 64),
                 ("piece", 8192, 256), ("window", 262144, 16),
-                ("window", 32768, 64), ("window", 4096, 256))
+                ("window", 32768, 64), ("window", 4096, 256),
+                ("mesh", 262144, 64), ("mesh", 131072, 64))
+# edge calls: R = 1, one row past a block (8 rows at 32 lanes a row, 32 at
+# 8, 64 at 4) and both sides of the lane-count steps (csrc/merge.cu); rows
+# over 64 bytes always take 32 lanes, so they take the first two only
+MERGE_EDGE_ROWS = (1, 9, 2048, 2049, 4097, 8192, 8193, 8257)
+MERGE_EDGE_WIDTHS = (1, 3, 16, 17, 64, 65, 100, 256)
+
+# The merge kernel as it was before its redesign (one warp a row; lanes 0
+# and 1 look up), built beside the package's kernels and timed on the same
+# inputs as the yardstick of the redesign ("before_ms").
+MERGE_BEFORE_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+namespace {
+constexpr int kWarps = 8;
+constexpr int kMaxRank = 0x7FFFFFFF;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+__device__ __forceinline__ unsigned mix(int a, int b, unsigned c1,
+                                        unsigned c2, unsigned c3,
+                                        unsigned mask) {
+  unsigned h = (unsigned)a * c1 + (unsigned)b * c2;
+  h ^= h >> 16;
+  h *= c3;
+  h ^= h >> 15;
+  return h & mask;
+}
+__device__ __forceinline__ int match(int4 ka, int4 kb, int4 va, int a,
+                                     int b) {
+  int v = -1;
+  if (ka.x == a && kb.x == b) v = max(v, va.x);
+  if (ka.y == a && kb.y == b) v = max(v, va.y);
+  if (ka.z == a && kb.z == b) v = max(v, va.z);
+  if (ka.w == a && kb.w == b) v = max(v, va.w);
+  return v;
+}
+__device__ int lookup(const int* __restrict__ rows, unsigned mask, int a,
+                      int b) {
+  if (a < 0 || b < 0) return kMaxRank;
+  const unsigned h0 = mix(a, b, 0x9E3779B1u, 0x85EBCA77u, 0x7FEB352Du, mask);
+  const unsigned h1 = mix(a, b, 0xC2B2AE3Du, 0x27D4EB2Fu, 0x165667B1u, mask);
+  const int4* r0 = reinterpret_cast<const int4*>(rows + (size_t)h0 * 12);
+  const int4* r1 = reinterpret_cast<const int4*>(rows + (size_t)h1 * 12);
+  const int4 a0 = __ldg(r0), b0 = __ldg(r0 + 1), v0 = __ldg(r0 + 2);
+  const int4 a1 = __ldg(r1), b1 = __ldg(r1 + 1), v1 = __ldg(r1 + 2);
+  const int first = match(a0, b0, v0, a, b);
+  if (first >= 0) return first;
+  const int second = match(a1, b1, v1, a, b);
+  return second >= 0 ? second : kMaxRank;
+}
+__global__ void __launch_bounds__(kWarps * 32)
+merge_rows_kernel(const uint8_t* __restrict__ bytes,
+                  const int* __restrict__ lengths, int R, int C,
+                  const int* __restrict__ byte_rank,
+                  const int* __restrict__ rows, unsigned mask,
+                  const int* __restrict__ lut, int* __restrict__ tok_out,
+                  int* __restrict__ counts) {
+  extern __shared__ int smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + warp;
+  if (row >= R) return;
+  int* tok = smem + warp * 4 * C;
+  int* pr = tok + C;
+  int* nxt = pr + C;
+  int* prv = nxt + C;
+  const uint8_t* src = bytes + row * C;
+  const int L = min(max(lengths[row], 0), C);
+  for (int c = lane; c < C; c += 32) {
+    int t = -1, r = kMaxRank;
+    if (c < L) t = byte_rank[src[c]];
+    if (c < L - 1) {
+      r = lut != nullptr ? lut[src[c] * 256 + src[c + 1]]
+                         : lookup(rows, mask, t, byte_rank[src[c + 1]]);
+    }
+    tok[c] = t;
+    pr[c] = r;
+    nxt[c] = c < L - 1 ? c + 1 : C;
+    prv[c] = (c > 0 && c < L) ? c - 1 : C;
+  }
+  __syncwarp();
+  while (L >= 2) {
+    unsigned long long best = ~0ull;
+    for (int c = lane; c < L; c += 32) {
+      const unsigned long long k =
+          ((unsigned long long)(unsigned)pr[c] << 32) | (unsigned)c;
+      best = k < best ? k : best;
+    }
+    for (int o = 16; o; o >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(kFull, best, o);
+      best = other < best ? other : best;
+    }
+    const int v = (int)(best >> 32);
+    if (v == kMaxRank) break;
+    const int b = (int)(best & 0xFFFFFFFFull);
+    const int b2 = nxt[b];
+    const int b3 = b2 < C ? nxt[b2] : C;
+    const int p = prv[b];
+    const int t3 = b3 < C ? tok[b3] : -1;
+    const int tp = p < C ? tok[p] : -1;
+    __syncwarp();
+    if (lane < 2) {
+      const int r = lookup(rows, mask, lane == 0 ? v : tp,
+                           lane == 0 ? t3 : v);
+      if (lane == 0) {
+        tok[b] = v;
+        if (b2 < C) {
+          tok[b2] = -1;
+          pr[b2] = kMaxRank;
+        }
+        nxt[b] = b3;
+        if (b3 < C) prv[b3] = b;
+        pr[b] = r;
+      } else if (p < C) {
+        pr[p] = r;
+      }
+    }
+    __syncwarp();
+  }
+  int live = 0;
+  for (int c = lane; c < C; c += 32) {
+    const int t = tok[c];
+    tok_out[row * C + c] = t;
+    live += t >= 0;
+  }
+  live = __reduce_add_sync(kFull, live);
+  if (lane == 0) counts[row] = live;
+}
+}  // namespace
+extern "C" int td_merge_rows_before(const void* bytes, const void* lengths,
+                                    int R, int C, const void* byte_rank,
+                                    const void* rows, unsigned mask,
+                                    const void* lut, void* tok, void* counts,
+                                    void* stream) {
+  if (R <= 0) return 0;
+  if (C < 1 || C > 256) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((R + kWarps - 1) / kWarps);
+  const size_t shared = (size_t)kWarps * 4 * C * sizeof(int);
+  merge_rows_kernel<<<blocks, kWarps * 32, shared, (cudaStream_t)stream>>>(
+      (const uint8_t*)bytes, (const int*)lengths, R, C,
+      (const int*)byte_rank, (const int*)rows, mask, (const int*)lut,
+      (int*)tok, (int*)counts);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_merge_before():
+    """Starts nvcc on MERGE_BEFORE_CU (into the package's build directory,
+    beside its kernels); returns the job for ``_build._finish``."""
+    from tokendagger_tpu_torch import _build
+
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD / "merge_before.cu"
+    src.write_text(MERGE_BEFORE_CU)
+    return _build._start(src, _build._nvcc(), _build.NVCC_FLAGS)
+
+
+@functools.lru_cache(maxsize=None)
+def merge_before_lib():
+    """The loaded library of MERGE_BEFORE_CU (built now if it is not)."""
+    import ctypes
+
+    from tokendagger_tpu_torch import _build
+
+    job = start_merge_before()
+    _build._finish(*job)
+    lib = ctypes.CDLL(str(job[0]))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.td_merge_rows_before.argtypes = [vp, vp, i, i, vp, vp,
+                                         ctypes.c_uint, vp, vp, vp, vp]
+    lib.td_merge_rows_before.restype = i
+    return lib
+
+
+def merge_before(by, ln, br, rows, mask: int, lut):
+    """The merge as it was before the redesign (MERGE_BEFORE_CU) on the
+    wrapper's arguments, allocating its outputs as the wrapper does."""
+    R, C = by.shape
+    tok = torch.empty((R, C), dtype=torch.int32, device=by.device)
+    cnt = torch.empty((R,), dtype=torch.int32, device=by.device)
+    rc = merge_before_lib().td_merge_rows_before(
+        by.data_ptr(), ln.data_ptr(), R, C, br.data_ptr(), rows.data_ptr(),
+        mask, None if lut is None else lut.data_ptr(), tok.data_ptr(),
+        cnt.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise AssertionError(f"the merge before its redesign: CUDA error {rc}")
+    return tok, cnt
+
+
+@functools.lru_cache(maxsize=None)
+def l2_read_ns(dev) -> float:
+    """One dependent L2 read (ns), measured once by a pointer chase."""
+    from tokendagger_tpu_torch.ops import merge as M
+
+    ns = M.l2_chase_ns(device=dev)
+    print(f"merge: one dependent L2 read {ns:.1f} ns (pointer chase over "
+          "a 4 MB table)")
+    return ns
 
 
 def merge_rows_input(seed: int, R: int, W: int, dev):
@@ -2326,18 +2535,139 @@ def merge_cost(ln, counts, W: int, lut: bool) -> tuple[int, int, int, int]:
     return n_bytes, n_merges * W, n_merges, int(merges.max()) if R else 0
 
 
-def check_merge_kernel(seed: int, dev, mt) -> tuple[dict, float]:
-    """The merge kernel against the plain loop on the card at the piece
-    path's shapes (8,192 rows of 16, 64, 256) and resolve_window's 4 MB
-    bucket caps, with and without pair_lut; times each shape as the
-    piece path (no pair_lut) or the window (pair_lut) calls it. Returns
-    the kernels-line row and the measured dependent L2 read (ns)."""
+def merge_timings(args, label: str) -> dict:
+    """The merge kernel's timings (``timings``) on the wrapper's arguments
+    ``args``, with the kernel before its redesign timed in turns beside it
+    (before, kernel, kernel, before; the smaller of each pair), its bytes
+    bound, its latency floor (the longest row's merges times one dependent
+    L2 read) and the lanes it gives a row; fails unless both kernels equal
+    the plain loop."""
     from tokendagger_tpu_torch.ops import merge as M
 
-    l2_ns = M.l2_chase_ns(device=dev)
-    print(f"merge: one dependent L2 read {l2_ns:.1f} ns (pointer chase over "
-          "a 4 MB table)")
-    err, times = 0, {}
+    by, ln, br, rows, mask, lut = args
+
+    def fn():
+        return M.merge_rows(by, ln, br, rows, mask, lut)
+
+    def before():
+        return merge_before(by, ln, br, rows, mask, lut)
+
+    def plain():
+        return M.merge_rows_local(by, ln, br, rows, mask=mask, pair_lut=lut)
+
+    R, W = by.shape
+    want = plain()
+    if max_abs_err(fn(), want) or max_abs_err(before(), want):
+        raise AssertionError(f"merge {label}: a kernel differs from the "
+                             "plain loop")
+    n_bytes, n_ops, n_merges, longest = merge_cost(ln, want[1], W,
+                                                   lut is not None)
+    b1 = device_ms(before)
+    t = timings(fn, plain, n_bytes, n_ops, plain_reps=3)
+    t["ms"] = min(t["ms"], device_ms(fn))
+    t["before_ms"] = min(b1, device_ms(before))
+    t.update(merges=n_merges, longest_row_merges=longest,
+             latency_floor_ms=longest * l2_read_ns(by.device.type) * 1e-6,
+             lanes_per_row=M.lanes_per_row(R, W))
+    print(f"merge [{label}]: {show(t)}; before the redesign "
+          f"{t['before_ms']:.4f} ms ({t['before_ms'] / t['ms']:.2f}x); "
+          f"{t['lanes_per_row']} lanes a row; {n_merges} merges, longest row "
+          f"{longest}: latency floor {t['latency_floor_ms']:.4f} ms")
+    return t
+
+
+def chain_vocab(seed: int) -> tuple[dict[bytes, int], bytes]:
+    """Ranks over all 256 bytes, every run of 2-256 b"a" and every prefix of
+    a seeded 256-byte string S without b"a", whose adjacent pairs but the
+    first are no tokens: rows of W b"a" and S[:W] merge W - 1 times into
+    one token. Returns (ranks, S)."""
+    rng = np.random.default_rng(seed)
+    chars = [c for c in range(33, 127) if c != ord("a")]
+    s = bytes(rng.choice(chars, 256).astype(np.uint8))
+    ranks = {bytes([i]): i for i in range(256)}
+    for k in range(2, 257):
+        ranks[b"a" * k] = len(ranks)
+    for k in range(2, 257):
+        ranks[s[:k]] = len(ranks)
+    return ranks, s
+
+
+def merge_edge_rows(seed: int, R: int, W: int, chain: bytes, dev):
+    """(R, W) rows cycling through: empty, random of length W, one byte,
+    random of length W, S[:W], W b"a", W spaces, random of length 1..W;
+    garbage bytes past each length."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, (R, W)).astype(np.uint8)
+    lens = np.zeros(R, np.int32)
+    for r in range(R):
+        k = r % 8
+        row = (b"" if k == 0 else b"a" if k == 2 else chain[:W] if k == 4
+               else b"a" * W if k == 5 else b" " * W if k == 6
+               else bytes(rng.integers(32, 127, W if k in (1, 3)
+                                       else int(rng.integers(1, W + 1)))
+                          .astype(np.uint8)))
+        buf[r, : len(row)] = np.frombuffer(row, np.uint8)
+        lens[r] = len(row)
+    return torch.from_numpy(buf).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def check_merge_edges(seed: int, dev, mt) -> int:
+    """The merge kernel against the plain loop on edge calls: R in
+    MERGE_EDGE_ROWS x the widths MERGE_EDGE_WIDTHS (16, 64, 256 and
+    others; over 64 bytes R = 1 and 9), with and without pair_lut, on the stand-in's tables and a
+    chain vocabulary's (``chain_vocab``: its S[:W] and W b"a" rows merge
+    W - 1 times); each call must launch once. Returns the largest
+    error."""
+    from tokendagger_tpu_torch.convert import merge_tables_from_ranks
+    from tokendagger_tpu_torch.ops import merge as M
+
+    ranks, chain = chain_vocab(seed)
+    vocabs = (("stand-in", mt),
+              ("chain", merge_tables_from_ranks(ranks, device=dev)))
+    t, err, calls = time.perf_counter(), 0, 0
+    for name, tb in vocabs:
+        for W in MERGE_EDGE_WIDTHS:
+            for R in MERGE_EDGE_ROWS if W <= 64 else MERGE_EDGE_ROWS[:2]:
+                by, ln = merge_edge_rows(seed + R + W, R, W, chain, dev)
+                for lut in (None, tb.pair_lut):
+                    n0 = M.merge_rows.launches
+                    got = M.merge_rows(by, ln, tb.byte_rank, tb.pair_rows,
+                                       tb.pair_mask, lut)
+                    if M.merge_rows.launches != n0 + 1:
+                        raise AssertionError("merge: a call did not count "
+                                             "one launch")
+                    want = M.merge_rows_local(by, ln, tb.byte_rank,
+                                              tb.pair_rows, mask=tb.pair_mask,
+                                              pair_lut=lut)
+                    e = max_abs_err(got, want)
+                    if e:
+                        raise AssertionError(
+                            f"merge kernel differs on edge rows {(R, W)} "
+                            f"({name}, pair_lut {lut is not None})")
+                    if name == "chain" and R > 5 and W > 1 and (
+                            int(want[1][4]) != 1 or int(want[1][5]) != 1):
+                        raise AssertionError("merge: the chain rows did not "
+                                             "merge into one token")
+                    err, calls = max(err, e), calls + 1
+    print(f"merge kernel: edge rows exact in {calls} calls (R {MERGE_EDGE_ROWS}"
+          f" x W {MERGE_EDGE_WIDTHS}, over 64 bytes R 1 and 9; both "
+          "vocabularies, with and without "
+          f"pair_lut; chains of W - 1 merges) in "
+          f"{time.perf_counter() - t:.1f} s")
+    return err
+
+
+def check_merge_kernel(seed: int, dev, mt) -> dict:
+    """The merge kernel against the plain loop on the card at MERGE_SHAPES
+    (the piece path's 8,192 rows of 16, 64 and 256 bytes, resolve_window's
+    4 MB bucket caps, the mesh steps' and the sharded text's rows) on
+    seeded rows, with and without pair_lut, and on the edge calls
+    (``check_merge_edges``); times each shape as its path calls it (the
+    windows with pair_lut) beside the kernel before its redesign. Returns
+    the kernels-line row."""
+    from tokendagger_tpu_torch.ops import merge as M
+
+    err, times = check_merge_edges(seed, dev, mt), {}
     for i, (path, R, W) in enumerate(MERGE_SHAPES):
         by, ln = merge_rows_input(seed + i, R, W, dev)
         for lut in (None, mt.pair_lut):
@@ -2351,38 +2681,21 @@ def check_merge_kernel(seed: int, dev, mt) -> tuple[dict, float]:
                 raise AssertionError(f"merge kernel differs at {(R, W)} "
                                      f"(pair_lut {lut is not None})")
         lut = mt.pair_lut if path == "window" else None
-        n_bytes, n_ops, n_merges, longest = merge_cost(
-            ln, want[1], W, lut is not None)
-        t = timings(lambda: M.merge_rows(by, ln, mt.byte_rank, mt.pair_rows,
-                                         mt.pair_mask, lut),
-                    lambda: M.merge_rows_local(by, ln, mt.byte_rank,
-                                               mt.pair_rows,
-                                               mask=mt.pair_mask,
-                                               pair_lut=lut),
-                    n_bytes, n_ops, plain_reps=3)
-        t.update(merges=n_merges, longest_row_merges=longest,
-                 latency_floor_ms=longest * l2_ns * 1e-6)
         key = f"{path} ({R}, {W})" + (" pair_lut" if lut is not None else "")
-        times[key] = t
-        print(f"merge kernel {key}: {show(t)}; {n_merges} merges, longest "
-              f"row {longest}: latency floor {t['latency_floor_ms']:.4f} ms "
-              f"({'latency' if t['latency_floor_ms'] > t['bound_ms'] else 'bytes'}"
-              " bound the kernel)")
+        times[key] = merge_timings(
+            (by, ln, mt.byte_rank, mt.pair_rows, mt.pair_mask, lut), key)
     print(f"merge kernel: max_abs_err {err} at {len(MERGE_SHAPES)} shapes x "
           "2 (with and without pair_lut), edge rows included")
     head = next(iter(times))
-    row = dict(name="merge", route="cuda",
-               source="tokendagger_tpu_torch/csrc/merge.cu",
-               replaces="tokendagger_tpu/ops/merge.py:96 (XLA while_loop, "
-                        "no pallas_call)",
-               max_abs_err=err, **{k: times[head][k] for k in (
-                   "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                   "latency_floor_ms")},
-               library_ms=None, l2_read_ns=l2_ns,
-               latency_floor_ms_by_shape={k: v["latency_floor_ms"]
-                                          for k, v in times.items()},
-               **by_shape(times))
-    return row, l2_ns
+    return dict(name="merge", route="cuda",
+                source="tokendagger_tpu_torch/csrc/merge.cu",
+                replaces="tokendagger_tpu/ops/merge.py:96 (XLA while_loop, "
+                         "no pallas_call)",
+                max_abs_err=err, **{k: times[head][k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "latency_floor_ms", "before_ms")},
+                library_ms=None, l2_read_ns=l2_read_ns(dev),
+                **by_shape(times))
 
 
 def rare_text(seed: int, n_bytes: int) -> str:
@@ -2428,7 +2741,7 @@ def run_pieces(seed: int, dev, n_bytes: int = 9 << 19
           f"{mt.pair_rows.shape[0]} buckets ({mt.pair_rows.numel() * 4} B), "
           f"{nb_card} B on the card in all, built in "
           f"{time.perf_counter() - t:.1f} s (with the tokenizer)")
-    row = check_merge_kernel(seed + 60, dev, mt)[0] if dev != "cpu" else None
+    row = check_merge_kernel(seed + 60, dev, mt) if dev != "cpu" else None
 
     text = rare_text(seed + 61, n_bytes)
     nbytes = len(text.encode())
@@ -3003,27 +3316,6 @@ def hold_recorded(seen: dict, label: str) -> dict:
     return errs
 
 
-def time_merge(args, label: str) -> dict:
-    """The merge kernel's timings (``timings``) on one recorded launch's
-    arguments."""
-    from tokendagger_tpu_torch.ops import merge as M
-
-    by, ln, br, rows, mask, lut = args
-
-    def plain():
-        return M.merge_rows_local(by, ln, br, rows, mask=mask, pair_lut=lut)
-
-    R, W = by.shape
-    n_bytes, n_ops, n_merges, longest = merge_cost(ln, plain()[1], W,
-                                                   lut is not None)
-    t = timings(lambda: M.merge_rows(by, ln, br, rows, mask, lut), plain,
-                n_bytes, n_ops, plain_reps=3)
-    t.update(merges=n_merges, longest_row_merges=longest)
-    print(f"merge [mesh {label} {(R, W)}]: {show(t)}; {n_merges} merges, "
-          f"longest row {longest}")
-    return t
-
-
 def _mesh_rank(rank: int, dev: str, store: str, vocab: str, rows: str,
                text: str, out: str) -> None:
     """One of two ranks sharing the card ``dev`` over gloo (spawned): the
@@ -3211,7 +3503,8 @@ def run_mesh(seed: int, mb: int, dev) -> tuple[dict, dict, dict]:
                   f"{json.dumps({k: v for k, v in run.items() if v})}")
     held(seen, "steps")
     merge_args = next(a for k, a in seen.items() if k[0] == "merge")
-    times[f"mesh steps {tuple(bb.shape)}"] = time_merge(merge_args, "steps")
+    key = f"mesh steps {tuple(bb.shape)}"
+    times[key] = merge_timings(merge_args, key)
 
     # ---- ShardedTextEncoder over 16 MB at the JAX defaults ----
     text = multiscript(MESH_TEXT_MB << 20, seed + 31)
@@ -3232,8 +3525,8 @@ def run_mesh(seed: int, mb: int, dev) -> tuple[dict, dict, dict]:
         st.encode(data[: 1 << 20])                   # warm-up: 8 passes
     held(seen, "sharded text")
     merge_args = next(a for k, a in seen.items() if k[0] == "merge")
-    times[f"mesh text {tuple(merge_args[0].shape)}"] = time_merge(
-        merge_args, "sharded text")
+    key = f"mesh text {tuple(merge_args[0].shape)}"
+    times[key] = merge_timings(merge_args, key)
     p0, f0 = st.passes, st.fallbacks
     ids, wall, run = leg(lambda: st.encode(data))
     passes, fallbacks = st.passes - p0, st.fallbacks - f0
@@ -3340,7 +3633,9 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t = time.perf_counter()
+    before = start_merge_before()       # in parallel with the package's
     libs = _build.build_all()
+    _build._finish(*before)
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -3408,7 +3703,8 @@ def main() -> int:
             "plain_ms_by_shape", "bound_ms_by_shape", "library_ms_by_shape",
             "launches_per_call_by_shape", "blocks_per_window_by_shape",
             "merges_by_shape", "longest_row_merges_by_shape",
-            "latency_floor_ms", "l2_read_ns", "latency_floor_ms_by_shape")
+            "latency_floor_ms", "l2_read_ns", "latency_floor_ms_by_shape",
+            "before_ms", "before_ms_by_shape", "lanes_per_row_by_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
 

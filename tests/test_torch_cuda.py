@@ -595,16 +595,42 @@ def _merge_tables(dev):
     return merge_tables_from_ranks(merge_vocab()[0], device=dev)
 
 
-@pytest.mark.parametrize("lut", [False, True])
-@pytest.mark.parametrize("C", [16, 64, 256])
-def test_merge_kernel_equals_plain(dev, C, lut):
-    """The merge kernel against the plain loop on random and edge rows
-    (lengths 0, 1 and C, equal-byte runs, unranked pairs)."""
-    from tokendagger_tpu_torch.ops import merge as M
+def _chain_tables(dev):
+    """Merge tables of ranks over all 256 bytes, every run of 2-256 b"a"
+    and every prefix of a seeded 256-byte string S without b"a": rows of C
+    b"a" and S[:C] merge C - 1 times. Returns (tables, S)."""
+    from tokendagger_tpu_torch.convert import merge_tables_from_ranks
+
+    rng = np.random.default_rng(11)
+    s = bytes(rng.choice([c for c in range(33, 127) if c != ord("a")],
+                         256).astype(np.uint8))
+    ranks = {bytes([i]): i for i in range(256)}
+    for k in range(2, 257):
+        ranks[b"a" * k] = len(ranks)
+    for k in range(2, 257):
+        ranks[s[:k]] = len(ranks)
+    return merge_tables_from_ranks(ranks, device=dev), s
+
+
+def _edge_rows(rng, R, C, chain):
+    """``merge_rows_np``'s rows (R >= 9) with every 8th row from the 9th on
+    replaced in turn by: empty, a row of C bytes, one byte, S[:C], C b"a",
+    C spaces; so lengths 0 and 1 sit between long rows."""
     from torch_port_util import merge_rows_np
 
-    mt = _merge_tables(dev)
-    buf, lens = merge_rows_np(np.random.default_rng(C), 700, C)
+    buf, lens = merge_rows_np(rng, R, C)
+    cycle = [b"", bytes(rng.integers(32, 127, C).astype(np.uint8)), b"a",
+             chain[:C], b"a" * C, b" " * C]
+    for k, r in enumerate(range(9, R, 8)):
+        row = cycle[k % len(cycle)]
+        buf[r, : len(row)] = np.frombuffer(row, np.uint8)
+        lens[r] = len(row)
+    return buf, lens
+
+
+def _held(M, dev, mt, buf, lens, lut):
+    """The merge kernel on (buf, lens) against the plain loop; the call
+    must count one launch. Returns the counts."""
     by, ln = torch.from_numpy(buf).to(dev), torch.from_numpy(lens).to(dev)
     lut_t = mt.pair_lut if lut else None
     before = M.merge_rows.launches
@@ -615,7 +641,92 @@ def test_merge_kernel_equals_plain(dev, C, lut):
     want = M.merge_rows_local(by, ln, mt.byte_rank, mt.pair_rows,
                               mask=mt.pair_mask, pair_lut=lut_t)
     assert torch.equal(tok, want[0]) and torch.equal(cnt, want[1])
-    assert int((cnt.cpu() < torch.from_numpy(lens)).sum()) > 100  # merged
+    return cnt.cpu()
+
+
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("C", [16, 64, 256])
+def test_merge_kernel_equals_plain(dev, C, lut):
+    """The merge kernel against the plain loop on random and edge rows
+    (lengths 0, 1 and C between long rows, equal-byte runs, unranked
+    pairs), at R = 700; on edge calls (R = 1, one row past a block at
+    each lane count, both sides of the lane-count steps) with rows whose
+    merges are chains of C - 1 (a chain vocabulary); and, at C = 64,
+    131,072 rows (the sharded text's). Every call counts one launch."""
+    from tokendagger_tpu_torch.ops import merge as M
+    from torch_port_util import merge_rows_np
+
+    mt = _merge_tables(dev)
+    chain_mt, chain = _chain_tables(dev)
+    buf, lens = _edge_rows(np.random.default_rng(C), 700, C, chain)
+    cnt = _held(M, dev, mt, buf, lens, lut)
+    assert int((cnt < torch.from_numpy(lens)).sum()) > 100     # merged
+    for R in (1, 9, 2048, 2049, 4097, 8192, 8193, 8257):
+        buf, lens = _edge_rows(np.random.default_rng(R + C), max(R, 9), C,
+                               chain)
+        for tables in (mt, chain_mt):
+            cnt = _held(M, dev, tables, buf[-R:], lens[-R:], lut)
+        if R > 41:       # rows 33 and 41, S[:C] and C b"a": one token each
+            assert int(cnt[33]) == int(cnt[41]) == 1
+    if C == 64:
+        buf, lens = merge_rows_np(np.random.default_rng(64), 131072, 64)
+        _held(M, dev, mt, buf, lens, lut)
+
+
+def test_merge_kernel_in_a_mostly_empty_window(dev):
+    """resolve_window(miss_mode="device") on a 64 KB window of prose whose
+    pieces are in the vocabulary but three rare identifiers: the merge
+    buckets are almost empty, every merge call launches once (three a
+    window), and the ids equal the CPU's."""
+    from conftest import make_tiny_vocab
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine
+    from tokendagger_tpu_torch.convert import merge_tables_from_ranks
+    from tokendagger_tpu_torch.ops import merge as M
+    from tokendagger_tpu_torch.ops.fused import caps_for, resolve_window
+    from tokendagger_tpu_torch.tables import build_vhash8
+
+    n = 1 << 16
+    rng = np.random.default_rng(5)
+    ranks, specials = make_tiny_vocab()
+    text = prose_text(rng, n - 2000)
+    plain = HostEngine(LLAMA4_PATTERN, {bytes([i]): i for i in range(256)},
+                       {})
+    for a, b in plain.split_spans(text):
+        p = text[a:b].encode()
+        for k in range(2, len(p) + 1):
+            ranks.setdefault(p[:k], len(ranks))
+    text = " ".join([text, "zqxjkv", "qqzzxxjjvvkk" * 4, "xq" * 100, "end"])
+    raw = text.encode()
+    host = HostEngine(LLAMA4_PATTERN, ranks, specials)
+    starts = np.zeros(n, bool)
+    for a, _ in host.split_spans(text):
+        starts[a] = True
+    boc = np.full(n, len(raw), np.int32)
+    boc[: len(raw)] = np.arange(len(raw))        # ASCII: a byte a char
+    data = np.zeros(n, np.uint8)
+    data[: len(raw)] = np.frombuffer(raw, np.uint8)
+    vh, vmask, _ = build_vhash8(ranks)
+    out, rows = {}, {}
+    for d in ("cpu", dev):
+        mt = merge_tables_from_ranks(ranks, device=d)
+        args = [torch.from_numpy(x)[None].to(d) for x in (starts, boc, data)]
+        args += [torch.tensor([v], dtype=torch.int32, device=d)
+                 for v in (len(raw), len(raw))]
+        rows[d] = {}
+        before = M.merge_rows.launches
+        out[d] = resolve_window(
+            *args, mt.byte_rank, mt.pair_rows, mt.pair_lut, mt.vk, mt.vlen,
+            mt.vrank, torch.as_tensor(vh, device=d), mask=mt.pair_mask,
+            vhash_mask=vmask, miss_mode="device", rows_out=rows[d],
+            **caps_for(n))
+        torch.cuda.synchronize()
+        assert M.merge_rows.launches == before + (3 if d != "cpu" else 0)
+    for g, w in zip(out[dev], out["cpu"]):
+        assert torch.equal(g.cpu(), w)
+    caps = caps_for(n)
+    n_rows = {w: int(v.sum()) for w, v in rows["cpu"].items()}
+    assert 0 < sum(n_rows.values()) <= 8, n_rows
+    assert n_rows[16] < caps["m16"] // 100 and n_rows[64] < caps["m64"] // 10
 
 
 def test_resolve_window_card_equals_cpu(dev):

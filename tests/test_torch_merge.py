@@ -1,5 +1,9 @@
-"""The port's pair-merge tables, device BPE merge (plain versions) and
-sort join against the JAX package, bit for bit, on the CPU."""
+"""The port's pair-merge tables, device BPE merge (plain versions and the
+kernel's row routines built for the host) and sort join against the JAX
+package, bit for bit, on the CPU."""
+
+import ctypes
+from functools import lru_cache
 
 import jax.numpy as jnp
 import numpy as np
@@ -144,6 +148,101 @@ def test_merge_rows_on_the_cpu_is_the_plain_loop(merge_ref):
     assert M.merge_rows(torch.zeros((0, 16), dtype=torch.uint8),
                         torch.zeros(0, dtype=torch.int32), mt.byte_rank,
                         mt.pair_rows, mt.pair_mask)[0].shape == (0, 16)
+
+
+def _chain_vocab():
+    """Ranks over all 256 bytes, every run of 2-256 b"a" and every prefix of
+    a seeded 256-byte string S without b"a", whose adjacent pairs but the
+    first are no tokens: rows of C b"a" and S[:C] merge C - 1 times into
+    one token. Returns (ranks, S)."""
+    rng = np.random.default_rng(11)
+    chars = [c for c in range(33, 127) if c != ord("a")]
+    s = bytes(rng.choice(chars, 256).astype(np.uint8))
+    ranks = {bytes([i]): i for i in range(256)}
+    for k in range(2, 257):
+        ranks[b"a" * k] = len(ranks)
+    for k in range(2, 257):
+        ranks[s[:k]] = len(ranks)
+    return ranks, s
+
+
+@lru_cache(maxsize=None)
+def _host_tables(vocab: str):
+    """The port's merge tables of the chain or the collision vocabulary."""
+    ranks = _chain_vocab()[0] if vocab == "chain" else collision_vocab(3)[0]
+    return merge_tables_from_ranks(ranks, device="cpu")
+
+
+def _edge_rows(rng, C: int, chain: bytes):
+    """``merge_rows_np``'s 48 rows with rows 9-16 replaced: lengths 0 and 1
+    between rows of length C, S[:C] (row 14), C b"a" (row 15) and C
+    spaces (row 16), with the old bytes left as garbage past each
+    length."""
+    buf, lens = merge_rows_np(rng, 48, C)
+    wide = [bytes(rng.integers(32, 127, C).astype(np.uint8)) for _ in (0, 1)]
+    for r, row in enumerate([b"", wide[0], b"a", wide[1], b"", chain[:C],
+                             b"a" * C, b" " * C], start=9):
+        buf[r, : len(row)] = np.frombuffer(row, np.uint8)
+        lens[r] = len(row)
+    return buf, lens
+
+
+def _host_merge(buf, lens, mt, lut, G: int):
+    """td_merge_rows_host (csrc/merge_host.cpp) on numpy rows, G lanes a
+    row: (tok, counts)."""
+    from tokendagger_tpu_torch._build import host_library
+
+    fn = host_library("merge_host").td_merge_rows_host
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, i, i, vp, vp, ctypes.c_uint, vp, vp, vp, i]
+    fn.restype = i
+    R, C = buf.shape
+    buf, lens = np.ascontiguousarray(buf), np.ascontiguousarray(lens)
+    br, rows = mt.byte_rank.numpy(), mt.pair_rows.numpy()
+    lt = None if lut is None else lut.numpy()
+    tok = np.empty((R, C), np.int32)
+    cnt = np.empty(R, np.int32)
+    assert fn(buf.ctypes.data, lens.ctypes.data, R, C, br.ctypes.data,
+              rows.ctypes.data, mt.pair_mask,
+              None if lt is None else lt.ctypes.data, tok.ctypes.data,
+              cnt.ctypes.data, G) == 0
+    return tok, cnt
+
+
+@pytest.mark.parametrize("vocab", ["merge", "collision", "chain"])
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("C", [16, 64, 256])
+def test_merge_kernel_rows_host_build_equal_plain(merge_ref, C, lut, vocab):
+    """The routines each lane group of the merge kernel runs
+    (csrc/merge_row.cuh), built for the host (csrc/merge_host.cpp) at 1,
+    4, 8 and 32 lanes a row, equal the plain loop on edge rows (lengths 0
+    and 1 between long rows, all-tie rows, chains of C - 1 merges, R = 1),
+    and, through it (at C = 256), the JAX package's merge_rows_local."""
+    chain = _chain_vocab()[1]
+    if vocab == "merge":
+        _, ref, mt = merge_ref
+    else:
+        mt = _host_tables(vocab)
+    buf, lens = _edge_rows(np.random.default_rng(C + 7), C, chain)
+    pl = mt.pair_lut if lut else None
+    want = [w.numpy() for w in M.merge_rows_local(
+        torch.from_numpy(buf), torch.from_numpy(lens), mt.byte_rank,
+        mt.pair_rows, mask=mt.pair_mask, pair_lut=pl)]
+    for G in (1, 4, 8, 32):
+        got = _host_merge(buf, lens, mt, pl, G)
+        assert np.array_equal(got[0], want[0]), G
+        assert np.array_equal(got[1], want[1]), G
+        one = _host_merge(buf[14:15], lens[14:15], mt, pl, G)
+        assert np.array_equal(one[0], want[0][14:15]), G
+        assert np.array_equal(one[1], want[1][14:15]), G
+    if vocab == "chain":                       # S[:C] and C b"a": one token
+        assert want[1][14] == want[1][15] == 1
+    if vocab == "merge" and not lut and C == 256:
+        jw = JM.merge_rows_local(
+            jnp.asarray(buf), jnp.asarray(lens), jnp.asarray(ref.byte_rank),
+            jnp.asarray(ref.pair.rows), mask=ref.pair.mask)
+        assert np.array_equal(np.asarray(jw[0]), want[0])
+        assert np.array_equal(np.asarray(jw[1]), want[1])
 
 
 @pytest.mark.parametrize("bad", ["width", "dtype", "mask", "lut"])

@@ -6,8 +6,9 @@ land in ``_build/`` beside this file (ignored by git), named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
 is reused. ``build_all`` starts one nvcc per source at once.
 
-``csrc/piece_starts_host.cpp`` is the host build of the K1 derivation for
-the CPU tests; it is compiled the same way with the system C++ compiler.
+``csrc/piece_starts_host.cpp`` is the host build of the K1 derivation and
+``csrc/merge_host.cpp`` that of the merge's row routines, for the CPU
+tests; they are compiled the same way with the system C++ compiler.
 
 ``native_build`` compiles the native host engine (``native/tdnative.cpp``,
 and with ``native/tdpy.cpp`` its CPython extension) with g++ into the same

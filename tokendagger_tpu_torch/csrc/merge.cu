@@ -10,150 +10,181 @@
 //   merged id), unlink b2, and look up the two pairs around the merged
 //   part (prev p, b) and (b, next b3). Output: tok (-1 at dead slots) and
 //   the count of live parts. Bit-identical to the plain loop in
-//   ops/merge.py.
+//   ops/merge.py. The row's routines live in merge_row.cuh, which the CPU
+//   tests also build for the host (merge_host.cpp).
 //
 // The JAX version advances all rows in lockstep with one-hot reductions,
 // because XLA lowers (row, col)-indexed scatters to a sequential loop on
-// the TPU. Here one warp owns one row: the row's tok/pr/nxt/prv live in
-// shared memory (4 KB at C = 256), the lanes reduce (rank, column) to the
-// leftmost minimum with shuffles, lane 0 makes the pointer splice, and
-// lanes 0 and 1 make the two pair lookups at once (the same instructions,
-// each on its own pair). Each lookup issues both candidate 48-byte rows
-// of the two-choice table before comparing, so it costs one round trip to
-// L2, where a hot table stays.
+// the TPU. A row's merges are a chain (each merge's new pairs may be the
+// next minimum), so rows are the parallelism here.
 //
-// What bounds it on the H100: not bytes. A row's merges are a chain, each
-// a full-row scan, a 64-bit warp min-reduce, three dependent shared reads
-// and an L2 round trip; the batch takes about its longest row's chain
-// when the card holds all rows at once. Its floor is that row's merges
-// times one dependent L2 read; the per-merge instructions put it above
-// (PERF.md section 6 has both figures).
+// What bounds it on the H100. The first design (a warp a row, lanes 0-1
+// looking up) was not latency-bound, as its note said: clock64 around
+// each phase of its merge step, on an H100 SXM at 700 W, gave per step
+// and warp a scan of the row 257-572 cycles, the 64-bit shuffle
+// min-reduce 285-406, the chain of shared reads 194-299, and the two
+// lookups with the writes
+// 1,235-6,475 (52-89% of the step) at the piece path's and the window
+// caps' shapes, with 62 warps an SM sharing its schedulers and its L1. So
+// the pair-table lookups bound it: every lookup issued six 16-byte loads
+// (both 48-byte candidate rows), each a request the L1 serves one line at
+// a time and L2 answers, and a row's lookups were spread over a warp of
+// which 30 lanes idled, with ~100 warp instructions a step.
+//
+// The design (merge_rows_group<G>): G lanes a row, 32 / G rows a warp.
+// * Lane j owns the row's columns j, j + G, ... and caches their leftmost
+//   minimum (rank, column). The row's leftmost minimum is the first of its
+//   lanes' (before()): two __reduce_min_sync (rank, then column among the
+//   lanes holding it) when G = 32, log2 G rounds of two shuffles else.
+//   After a merge only the lanes owning p, b or b2 take theirs again.
+// * Lanes 0 and 1 of a row make its two lookups at once, so 32 / G rows'
+//   lookups share each warp instruction. A lookup loads the two candidate
+//   rows' key quads (four 16-byte loads) and then the values of the row
+//   that holds the key only: a miss costs four requests, not six, and a
+//   dead neighbour none (merge_row.cuh).
+// * The first round runs in three passes whose loads are independent
+//   (bytes, ids with the lut's ranks, the table's ranks two at a time), so
+//   a lane waits about three round trips, not three a column.
+// * Rows sit rs = C + pad apart with rs = G (mod 32) when G < 32, so the
+//   lanes of a warp reading their k-th columns hit distinct banks. Links
+//   are bytes, so a row costs 10 B a column. A lane takes its minimum
+//   with all its loads in flight (lane_min's bound K: 4 columns for
+//   16-byte rows at 4 lanes, 16 for 64-byte rows).
+// * G falls as rows grow (lanes_per_row): with few rows, more lanes a row
+//   shorten each row's chain and keep the card's warps busy; with many, 4
+//   lanes a row (8 rows a warp) cut the instructions and requests a merge
+//   costs. Rows over 64 bytes take a warp.
+// What bounds it now: still the lookups. clock64 on this design (same
+// card and shapes) gives per step and warp the reduction 160-350 cycles,
+// the shared reads 210-450, the lookups with the writes 990-3,060 (55-79%
+// of the step) and the lanes' minima 355-820; the first round takes 5-43%
+// of a warp's time (most where there is no lut and rows are many). With
+// 8,192 rows and fewer, and at 256-byte rows, the time is the longest
+// rows' chains of such steps. PERF.md section 6 has the times beside the
+// bytes bound and the latency floor (the longest row's merges times one
+// dependent L2 read).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "merge_row.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;                 // rows per block
-constexpr int kMaxRank = 0x7FFFFFFF;
+using td_merge::kMaxRank;
+using td_merge::Row;
+
+constexpr int kGroupThreads = 256;  // threads a block
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ unsigned mix(int a, int b, unsigned c1,
-                                        unsigned c2, unsigned c3,
-                                        unsigned mask) {
-  unsigned h = (unsigned)a * c1 + (unsigned)b * c2;
-  h ^= h >> 16;
-  h *= c3;
-  h ^= h >> 15;
-  return h & mask;
+// Lanes a row: 32 for rows over 64 bytes and for up to 2,048 rows; 8 up to
+// 8,192 rows; 4 beyond. Measured on the H100 (PERF.md section 6): of 4, 8,
+// 16 and 32 lanes, each is the fastest (or within 1% of it) at 2,048 to
+// 262,144 rows of 16 and 64 bytes where it is taken.
+int lanes_per_row(long long R, int C) {
+  if (C > 64 || R <= 2048) return 32;
+  return R <= 8192 ? 8 : 4;
 }
 
-__device__ __forceinline__ int match(int4 ka, int4 kb, int4 va, int a,
-                                     int b) {
-  int v = -1;
-  if (ka.x == a && kb.x == b) v = max(v, va.x);
-  if (ka.y == a && kb.y == b) v = max(v, va.y);
-  if (ka.z == a && kb.z == b) v = max(v, va.z);
-  if (ka.w == a && kb.w == b) v = max(v, va.w);
-  return v;
-}
-
-// rank(bytes(a) + bytes(b)) from the (nb, 12) pair table, MAX if none.
-__device__ int lookup(const int* __restrict__ rows, unsigned mask, int a,
-                      int b) {
-  if (a < 0 || b < 0) return kMaxRank;
-  const unsigned h0 = mix(a, b, 0x9E3779B1u, 0x85EBCA77u, 0x7FEB352Du, mask);
-  const unsigned h1 = mix(a, b, 0xC2B2AE3Du, 0x27D4EB2Fu, 0x165667B1u, mask);
-  const int4* r0 = reinterpret_cast<const int4*>(rows + (size_t)h0 * 12);
-  const int4* r1 = reinterpret_cast<const int4*>(rows + (size_t)h1 * 12);
-  const int4 a0 = __ldg(r0), b0 = __ldg(r0 + 1), v0 = __ldg(r0 + 2);
-  const int4 a1 = __ldg(r1), b1 = __ldg(r1 + 1), v1 = __ldg(r1 + 2);
-  const int first = match(a0, b0, v0, a, b);
-  if (first >= 0) return first;
-  const int second = match(a1, b1, v1, a, b);
-  return second >= 0 ? second : kMaxRank;
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-merge_rows_kernel(const uint8_t* __restrict__ bytes,
-                  const int* __restrict__ lengths, int R, int C,
-                  const int* __restrict__ byte_rank,
-                  const int* __restrict__ rows, unsigned mask,
-                  const int* __restrict__ lut, int* __restrict__ tok_out,
-                  int* __restrict__ counts) {
+// G lanes a row, 32 / G rows a warp. Lane j of a row owns its columns j,
+// j + G, ... and caches their leftmost minimum (rank, column); the row's
+// leftmost minimum is a reduction over the row's lanes. Rows are kept
+// rs = C + pad elements apart, rs = G (mod 32) when G < 32, so that the
+// lanes of a warp reading their j-th columns hit distinct banks.
+template <int G>
+__global__ void __launch_bounds__(kGroupThreads)
+merge_rows_group(const uint8_t* __restrict__ bytes,
+                 const int* __restrict__ lengths, int R, int C, int rs,
+                 const int* __restrict__ byte_rank,
+                 const int* __restrict__ rows, unsigned mask,
+                 const int* __restrict__ lut, int* __restrict__ tok_out,
+                 int* __restrict__ counts) {
+  constexpr int kRows = kGroupThreads / G;
+  // columns a lane owns, at most: in any row, and in rows of <= 16 bytes
+  constexpr int K = (G == 32 ? 256 : 64) / G, K16 = G >= 16 ? 1 : 16 / G;
   extern __shared__ int smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + warp;
-  if (row >= R) return;  // whole warps leave; the block never syncs
-  int* tok = smem + warp * 4 * C;
-  int* pr = tok + C;
-  int* nxt = pr + C;
-  int* prv = nxt + C;
-  const uint8_t* src = bytes + row * C;
-  const int L = min(max(lengths[row], 0), C);
+  const int j = threadIdx.x % G, g = threadIdx.x / G;
+  const long long row = (long long)blockIdx.x * kRows + g;
+  // whole warps past the last row leave; the others keep every lane, for
+  // the shuffles, and their rows past R are empty
+  if ((long long)blockIdx.x * kRows + (threadIdx.x & ~31) / G >= R) return;
+  const bool valid = row < R;
+  const int n = kRows * rs;
+  uint8_t* links = reinterpret_cast<uint8_t*>(smem + 2 * n);
+  const int at = g * rs;
+  const Row<1> st{smem + at, smem + n + at, links + at, links + n + at};
+  const uint8_t* src = bytes + (valid ? row : 0) * C;
+  const int L = valid ? min(max(lengths[row], 0), C) : 0;
 
-  for (int c = lane; c < C; c += 32) {
-    int t = -1, r = kMaxRank;
-    if (c < L) t = byte_rank[src[c]];
-    if (c < L - 1) {
-      r = lut != nullptr ? lut[src[c] * 256 + src[c + 1]]
-                         : lookup(rows, mask, t, byte_rank[src[c + 1]]);
-    }
-    tok[c] = t;
-    pr[c] = r;
-    nxt[c] = c < L - 1 ? c + 1 : C;
-    prv[c] = (c > 0 && c < L) ? c - 1 : C;
-  }
-  __syncwarp();
+  td_merge::init_row(st, src, L, C, j, G, byte_rank, rows, mask, lut,
+                     [] { __syncwarp(); });
+  int mr, mc;  // this lane's leftmost minimum (rank, column)
+  const auto own_min = [&] {
+    if (C <= 16)
+      td_merge::lane_min<K16>(st, j, G, C, mr, mc);
+    else
+      td_merge::lane_min<K>(st, j, G, C, mr, mc);
+  };
+  own_min();
 
-  while (L >= 2) {
-    // leftmost minimum: (rank, column) as one key, the smallest wins
-    unsigned long long best = ~0ull;
-    for (int c = lane; c < L; c += 32) {
-      const unsigned long long k =
-          ((unsigned long long)(unsigned)pr[c] << 32) | (unsigned)c;
-      best = k < best ? k : best;
-    }
-    for (int o = 16; o; o >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(kFull, best, o);
-      best = other < best ? other : best;
-    }
-    const int v = (int)(best >> 32);
-    if (v == kMaxRank) break;
-    const int b = (int)(best & 0xFFFFFFFFull);
-    const int b2 = nxt[b];
-    const int b3 = b2 < C ? nxt[b2] : C;
-    const int p = prv[b];
-    const int t3 = b3 < C ? tok[b3] : -1;
-    const int tp = p < C ? tok[p] : -1;
-    __syncwarp();
-    if (lane < 2) {
-      // lane 0 looks up (b, b3) and lane 1 (p, b): one instruction stream
-      const int r = lookup(rows, mask, lane == 0 ? v : tp,
-                           lane == 0 ? t3 : v);
-      if (lane == 0) {
-        tok[b] = v;
-        if (b2 < C) {
-          tok[b2] = -1;
-          pr[b2] = kMaxRank;
-        }
-        nxt[b] = b3;
-        if (b3 < C) prv[b3] = b;
-        pr[b] = r;
-      } else if (p < C) {
-        pr[p] = r;
+  while (true) {
+    int v, b;  // the row's leftmost minimum
+    if constexpr (G == 32) {
+      v = __reduce_min_sync(kFull, mr);
+      if (v == kMaxRank) break;
+      b = __reduce_min_sync(kFull, mr == v ? mc : C);
+    } else {
+      v = mr;
+      b = mc;
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1) {
+        const int ov = __shfl_xor_sync(kFull, v, o);
+        const int ob = __shfl_xor_sync(kFull, b, o);
+        if (td_merge::before(ov, ob, v, b)) { v = ov; b = ob; }
       }
+      if (!__any_sync(kFull, v != kMaxRank)) break;
+    }
+    const bool go = v != kMaxRank;  // rows of a warp end at their own step
+    td_merge::Step s{};
+    if (go) s = td_merge::read_step(st, b, v);
+    __syncwarp();  // every lane has read before lanes 0 and 1 write
+    if (go && j < 2) {
+      // lane 0 looks up (b, b3) and lane 1 (p, b): one instruction stream
+      const int r = td_merge::lookup(rows, mask, j ? s.tp : v,
+                                     j ? v : s.t3);
+      if (j == 0)
+        td_merge::splice(st, s, r);
+      else if (s.p >= 0)
+        st.p(s.p) = r;
     }
     __syncwarp();
+    if (go && td_merge::touched(s, j, G)) own_min();
   }
 
   int live = 0;
-  for (int c = lane; c < C; c += 32) {
-    const int t = tok[c];
-    tok_out[row * C + c] = t;
-    live += t >= 0;
+  if (valid) {
+    int* out = tok_out + row * C;
+    if (G < 32 && (C & 3) == 0) {
+      // 16 bytes a lane: rs and C are multiples of 4, so both sides align
+      for (int c = 4 * j; c < C; c += 4 * G) {
+        const int4 t = *reinterpret_cast<const int4*>(&st.t(c));
+        *reinterpret_cast<int4*>(out + c) = t;
+        live += (t.x >= 0) + (t.y >= 0) + (t.z >= 0) + (t.w >= 0);
+      }
+    } else {
+      for (int c = j; c < C; c += G) {
+        const int t = st.t(c);
+        out[c] = t;
+        live += t >= 0;
+      }
+    }
   }
-  live = __reduce_add_sync(kFull, live);
-  if (lane == 0) counts[row] = live;
+  if constexpr (G == 32) {
+    live = __reduce_add_sync(kFull, live);
+  } else {
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) live += __shfl_xor_sync(kFull, live, o);
+  }
+  if (valid && j == 0) counts[row] = live;
 }
 
 // One thread walks a pointer chain: the latency of a dependent read that
@@ -177,14 +208,28 @@ int td_merge_rows(const void* bytes, const void* lengths, int R, int C,
                   const void* lut, void* tok, void* counts, void* stream) {
   if (R <= 0) return 0;
   if (C < 1 || C > 256) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((R + kWarps - 1) / kWarps);
-  const size_t shared = (size_t)kWarps * 4 * C * sizeof(int);
-  merge_rows_kernel<<<blocks, kWarps * 32, shared, (cudaStream_t)stream>>>(
-      (const uint8_t*)bytes, (const int*)lengths, R, C,
-      (const int*)byte_rank, (const int*)rows, mask, (const int*)lut,
-      (int*)tok, (int*)counts);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* b = (const uint8_t*)bytes;
+  const int* ln = (const int*)lengths;
+  const int* br = (const int*)byte_rank;
+  const int* pt = (const int*)rows;
+  const int* lt = (const int*)lut;
+  int* tk = (int*)tok;
+  int* ct = (int*)counts;
+  const int G = lanes_per_row(R, C);
+  const int rows_b = kGroupThreads / G;
+  const int rs = G == 32 ? C : C + ((G - C) % 32 + 32) % 32;
+  const unsigned blocks = (unsigned)((R + rows_b - 1) / rows_b);
+  const size_t shared = (size_t)rows_b * rs * 10;  // 10 B a column
+  auto kernel = G == 32 ? merge_rows_group<32>
+                        : (G == 8 ? merge_rows_group<8> : merge_rows_group<4>);
+  kernel<<<blocks, kGroupThreads, shared, st>>>(b, ln, R, C, rs, br, pt, mask,
+                                                lt, tk, ct);
   return (int)cudaGetLastError();
 }
+
+// The lanes td_merge_rows gives each row of an (R, C) call.
+int td_merge_lanes(int R, int C) { return lanes_per_row(R, C); }
 
 // next: a permutation table (int32) holding one cycle; out: one int32.
 int td_l2_chase(const void* next, int steps, void* out, void* stream) {

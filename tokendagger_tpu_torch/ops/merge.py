@@ -178,6 +178,8 @@ def _library():
     lib.td_merge_rows.argtypes = [vp, vp, i, i, vp, vp, ctypes.c_uint, vp,
                                   vp, vp, vp]
     lib.td_merge_rows.restype = i
+    lib.td_merge_lanes.argtypes = [i, i]
+    lib.td_merge_lanes.restype = i
     lib.td_l2_chase.argtypes = [vp, i, vp, vp]
     lib.td_l2_chase.restype = i
     return lib
@@ -239,6 +241,12 @@ def merge_rows(byte_buf: torch.Tensor, lengths: torch.Tensor,
 
 
 merge_rows.launches = 0
+
+
+def lanes_per_row(R: int, C: int) -> int:
+    """The lanes ``td_merge_rows`` gives each row of an (R, C) call (32,
+    8 or 4; the note in ``csrc/merge.cu``). Needs the built library."""
+    return _library().td_merge_lanes(R, C)
 
 
 def l2_chase_ns(n: int = 1 << 20, steps: int = 1 << 16, seed: int = 0,

@@ -104,7 +104,7 @@ TRACED_KERNELS = (
     (compact.compact_by_mask, "mask_compact_kernel"),
     (compact.compact_record, "record_kernel"),
     (compact.expand_route, "route_expand_kernel"),
-    (merge.merge_rows, "merge_rows_kernel"),
+    (merge.merge_rows, "merge_rows_group"),
 )
 
 
