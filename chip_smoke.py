@@ -24,6 +24,13 @@
    spread each window over many blocks. K2+K3 is also timed on an edge
    row: seven empty windows and one window that is one piece, packed and
    byte flags.
+   Then the whole-piece probe kernel (``csrc/probe.cu``) against its
+   plain version on the stand-in's vhash8 table (the engine phase's
+   200,000 ranks, 2^18 buckets) with those windows' keys and with edge
+   rows (a dead row, a row of length -1, a row of hits in full buckets),
+   timed beside its bytes bound (keys, output and each table row the
+   pieces touch, once) and ``rows.index_select(0, h)`` alone, the gather
+   any torch formulation pays (device time by trace, and call time).
    Then K1's byte entry on 300 windows of 1 KB, more than the card holds
    its blocks (so they run in groups), against its plain version.
 3. Holds the kernels of the public API's engine against their plain
@@ -33,11 +40,12 @@
    window and a ragged length inside the first segment) for all four
    profiles.
    After step 5's run, every kernel of the engine's window pipeline (K9,
-   K4 in the decode's compaction, K1, K2+K3, K4 in finalize) is held
+   K4 in the decode's compaction, K1, K2+K3, the probe, K4 in finalize)
+   is held
    against its plain version stage by stage on one 4 MB window and on
    one grown 16 MB window of that run's texts, and K2+K3 (on the 4 MB
-   window's byte flags) and K4 (at the decode's and finalize_host's
-   shapes) are timed there.
+   window's byte flags), the probe and K4 (at the decode's and
+   finalize_host's shapes) are timed there.
 4. Drives ResidentStream on the card over at least 16 MB with a seeded
    200,000-rank stand-in vocabulary, checks the first batch's ids against
    the host engine, no host fallback, and one launch of each kernel per
@@ -83,8 +91,8 @@
    8 x 1 MB ("formulations": impl sort and scatter x starts_impl jnp and
    bits, compact_impl sort): ids equal to the host engine's, no window
    overflowed, every kernel of each run launched. K9, K1's codepoint
-   entry (all four profiles), K2+K3, K4 and the merge are then held
-   against their plain versions on the inputs every resident, single
+   entry (all four profiles), K2+K3, K4, the merge and the probe are then
+   held against their plain versions on the inputs every resident, single
    and formulation run gave them (each distinct input once), with edge
    rows, and timed once at each shape. The char form and match_lengths
    + chain_starts are held against K1's codepoint entry at (8, 1 M) for
@@ -99,8 +107,8 @@
    on seeded multi-script rows with an empty row, a row of exactly W
    chars, one piece and all whitespace: K9, K4 in the decode, K1's row
    entry (all four profiles; it gets its own row of the kernels line),
-   K2+K3 on byte flags with p_cap = W, and K4 in finalize_host; times
-   each at each shape.
+   K2+K3 on byte flags with p_cap = W, the probe on the stand-in's table,
+   and K4 in finalize_host; times each at each shape.
 8. The device BPE merge (``ops/merge.merge_rows``, ``csrc/merge.cu``)
    on the engine phase's stand-in vocabulary, whose pair table's bucket
    count and bytes on the card it prints:
@@ -194,7 +202,7 @@
      sharded text of 4 MB; rows, counters and ids equal one rank's; both
      rates printed.
    Every kernel of the path (K9, K1 bytes and class words, K2+K3, K4,
-   K5-K8, the merge) must launch in the one-rank legs.
+   K5-K8, the merge, the probe) must launch in the one-rank legs.
 12. Prints a "kernels" JSON line, then the card's name and power limit, and
    last {"ok": true, "device": {...}}. Any failure exits non-zero first.
 """
@@ -511,9 +519,10 @@ def show(t: dict) -> str:
     if "launches_per_call" in t:
         s += f"; {t['launches_per_call']:g} kernel launch per call (trace)"
     if "library" in t:
+        how = (f"{t['library_traces']} trace" if "library_traces" in t
+               else "CUDA events")
         s += (f"; {t['library']}: {t['library_ms']:.4f} ms on the device "
-              f"({t['library_traces']} trace), {t['library_call_ms']:.4f} "
-              "ms per call")
+              f"({how}), {t['library_call_ms']:.4f} ms per call")
     return s
 
 
@@ -710,6 +719,121 @@ def utf8_windows(seed: int, n: int, dev) -> list[torch.Tensor]:
     return out
 
 
+PROBE_OPS = 32     # 32-bit operations a piece: the hash, 8 slot compares
+
+
+def probe_args(keys) -> list:
+    """The probe's arguments (k0..k3, length) from K2+K3's outputs."""
+    return [keys[2], keys[3], keys[4], keys[5], keys[1]]
+
+
+def probe_err(q, rows, mask: int) -> int:
+    from tokendagger_tpu_torch.ops import join as J
+
+    return max_abs_err([J.vocab_probe8(*q, rows, mask)],
+                       [J.vocab_probe8_plain(*q, rows, mask)])
+
+
+def probe_edges(q, rows) -> list:
+    """``q`` with, each alone, row 0 dead (length 0, zero keys), the last
+    row of length -1 with zero keys (it hits an empty slot, rank 0), and
+    row 0 all hits on the table's full buckets (8 live slots, where the
+    table dropped entries)."""
+    live = rows[:, 32:40] >= 0
+    full = live.all(dim=1).nonzero().flatten()
+    r = rows[full if full.numel() else live.any(dim=1).nonzero().flatten()]
+    ent = [r[:, 8 * j:8 * j + 8].reshape(-1) for j in range(5)]
+    P = q[0].shape[-1]
+    hits = [e.repeat(-(-P // e.numel()))[:P] for e in ent]
+    out = []
+    for row, vals in ((0, [0, 0, 0, 0, 0]), (-1, [0, 0, 0, 0, -1]),
+                      (0, hits)):
+        out.append([_one_row(x, row, v) for x, v in zip(q, vals)])
+    return out
+
+
+def probe_bytes(q, mask: int) -> tuple[int, torch.Tensor]:
+    """The probe's bytes bound at ``q``: 20 B of keys and 4 B of rank a
+    piece, and each 192-byte table row the pieces touch, once; and the
+    pieces' rows."""
+    from tokendagger_tpu_torch.ops import join as J
+
+    h = J._mix(*J.vhash_ab(*q), 0, mask).reshape(-1)
+    return 192 * torch.unique(h).numel() + 24 * h.numel(), h
+
+
+def time_probe(q, rows, mask: int) -> dict:
+    """The probe kernel's timings at ``q`` (``timings``), with
+    ``rows.index_select(0, h)`` alone as its library yardstick: the row
+    gather any torch formulation pays, given the rows' indices. That call
+    does not synchronize, so it is timed as the kernel is (``device_ms``:
+    a trace late in this script can hold no kernel event)."""
+    from tokendagger_tpu_torch.ops import join as J
+
+    n_bytes, h = probe_bytes(q, mask)
+    t = timings(lambda: J.vocab_probe8(*q, rows, mask),
+                lambda: J.vocab_probe8_plain(*q, rows, mask), n_bytes,
+                PROBE_OPS * h.numel(), plain_reps=3)
+
+    def gather():
+        return rows.index_select(0, h)
+
+    t.update(library_ms=device_ms(gather), library_call_ms=median_ms(gather),
+             library="rows.index_select(0, h) alone: the row gather (no "
+                     "hash, no compare)")
+    return t
+
+
+@functools.lru_cache(maxsize=2)
+def standin_table(seed: int, dev) -> tuple[torch.Tensor, int, int]:
+    """The vhash8 table of the engine phase's stand-in on ``dev``: (rows,
+    mask, entries dropped from full buckets)."""
+    from tokendagger_tpu_torch.tables import build_vhash8
+
+    ranks = standin_vocab(200_000, seed, extra=multiscript(1 << 20,
+                                                          seed + 4))
+    rows, mask, dropped = build_vhash8(ranks)
+    return torch.from_numpy(rows).to(dev), mask, dropped
+
+
+def check_probe_kernel(seed: int, dev) -> dict:
+    """The whole-piece probe kernel against its plain version on the
+    stand-in's table (the engine phase's 200,000 ranks, 2^18 buckets) at
+    the stream batch's shape: the keys K2+K3 gives check_kernels' edge
+    windows, and the same with edge rows (``probe_edges``); timed at
+    both. Returns its row of the kernels line."""
+    from tokendagger_tpu_torch.ops import bitplane as BP
+    from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops.fused import caps_for
+
+    rows, mask, dropped = standin_table(seed, dev)
+    p_cap = caps_for(WINDOW)["p_cap"]
+    by, nb = edge_windows(seed, WINDOW, dev)
+    q = probe_args(CP.compact_piece_keys(BP.piece_starts_bits(by, nb), by,
+                                         nb, p_cap, packed=True))
+    edges = probe_edges(q, rows)
+    err = max(probe_err(x, rows, mask) for x in [q] + edges)
+    shape = tuple(q[0].shape)
+    print(f"probe vocab_probe8: table {tuple(rows.shape)} ({dropped} "
+          f"dropped); max_abs_err {err} at {shape} (stream keys and three "
+          "edge rows)")
+    if err:
+        raise AssertionError("the probe kernel differs from its plain "
+                             "version")
+    t = time_probe(q, rows, mask)
+    print(f"probe vocab_probe8 [stream {shape}, "
+          f"{int((q[4] > 0).sum())} live]: {show(t)}")
+    at = f"edge {shape}: row 0 all hits in full buckets"
+    edge = {at: time_probe(edges[2], rows, mask)}
+    print(f"probe vocab_probe8 [{at}]: {show(edge[at])}")
+    return dict(
+        name="vocab_probe8", route="cuda",
+        source="tokendagger_tpu_torch/csrc/probe.cu",
+        replaces="tokendagger_tpu/ops/join.py:339 (vocab_probe8t_chunks, "
+                 "body _probe8t_core :287; XLA, no pallas_call)",
+        max_abs_err=err, **t, **by_shape(edge))
+
+
 def check_engine_kernels(seed: int, dev) -> list[dict]:
     """K9 and K1's codepoint entry against their plain versions at the
     engine's shapes (one window of 4 MB, or 16 MB grown)."""
@@ -809,6 +933,7 @@ def run_stream(seed: int, mb: int, dev, *, window=WINDOW, batch=BATCH,
     from tokendagger_tpu_torch import LLAMA4_PATTERN, ResidentStream
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import join as J
     from tokendagger_tpu_torch.utils.windows import stream_windows
 
     t = time.perf_counter()
@@ -822,7 +947,7 @@ def run_stream(seed: int, mb: int, dev, *, window=WINDOW, batch=BATCH,
           f"{time.perf_counter() - t:.1f} s")
     rs.encode(text[: window * batch])  # warm-up: allocator and libraries
     kernels = (BP.piece_starts_bits, CP.compact_piece_keys,
-               CP.compact_by_mask)
+               CP.compact_by_mask, J.vocab_probe8)
     for k in kernels:
         k.launches = 0
     out, st = rs.encode(text)
@@ -850,8 +975,8 @@ def run_stream(seed: int, mb: int, dev, *, window=WINDOW, batch=BATCH,
     if dev != "cpu":
         stage_times(rs, wins[:batch])
         idle_share(lambda: rs.encode(text), f"stream encode of {len(text)} B")
-    return dict(zip(("piece_starts", "compact_piece_keys", "compact_by_mask"),
-                    launches))
+    return dict(zip(("piece_starts", "compact_piece_keys", "compact_by_mask",
+                     "vocab_probe8"), launches))
 
 
 def stage_times(rs, wins) -> None:
@@ -922,13 +1047,15 @@ def idle_share(fn, what: str) -> None:
 def engine_counters():
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import join as J
     from tokendagger_tpu_torch.ops import pretokenize as PT
 
     return dict(utf8_decode_block=PT.utf8_decode_block,
                 piece_starts_cp=BP.piece_starts_chars,
                 piece_starts_rows=BP.piece_starts_rows,
                 compact_piece_keys=CP.compact_piece_keys,
-                compact_by_mask=CP.compact_by_mask)
+                compact_by_mask=CP.compact_by_mask,
+                vocab_probe8=J.vocab_probe8)
 
 
 def first_diff(a: list, b: list) -> int:
@@ -1055,9 +1182,10 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
     on (label, window bytes, scan size) windows, each cut at its safe
     offset; then the per-stage times of the first (CUDA events around
     synchronized calls), K2+K3's times on its byte flags and K4's at its
-    three shapes there (the decode's compaction and finalize_host's two).
-    Returns the largest error of each kernel, and the timings of K2+K3
-    and K4 by kernel and shape."""
+    three shapes there (the decode's compaction and finalize_host's two),
+    and the probe kernel's on its keys. Returns the largest error of each
+    kernel, and the timings of K2+K3, K4 and the probe by kernel and
+    shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
     from tokendagger_tpu_torch.ops import pretokenize as PT
@@ -1065,9 +1193,11 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
     from tokendagger_tpu_torch.ops.join import vocab_probe8
 
     errs = dict.fromkeys(("utf8_decode_block", "piece_starts_cp",
-                          "compact_piece_keys", "compact_by_mask"), 0)
+                          "compact_piece_keys", "compact_by_mask",
+                          "vocab_probe8"), 0)
     k4_times: dict = {}
     k23_times: dict = {}
+    probe_times: dict = {}
     prof = eng._profile
     rows, mask = eng.tables.vhash8_rows, eng.tables.vhash8_mask
     for label, raw, N in windows:
@@ -1098,6 +1228,9 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
         e["compact_piece_keys"] = max_abs_err(
             keys, CP.compact_piece_keys_plain(stb, d, nb, p_cap))
         rank = vocab_probe8(*keys[2:6], keys[1], rows, mask)
+        q = probe_args(keys)
+        e["vocab_probe8"] = max(probe_err(x, rows, mask)
+                                for x in [q] + probe_edges(q, rows))
         # K4 in finalize: the same function on the CPU runs K4's plain
         # version, and every output but the sums is K4's
         fin_args = (keys[0], keys[1], rank, keys[6])
@@ -1140,6 +1273,10 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
         k23_times[at] = time_k23(stb, d, nb, p_cap, False)
         print(f"K2+K3 compact_piece_keys [{at}, {npc} pieces]: "
               f"{show(k23_times[at])}")
+        at = f"engine {label} (1, {p_cap})"
+        probe_times[at] = time_probe(q, rows, mask)
+        print(f"probe vocab_probe8 [{at}, {npc} pieces]: "
+              f"{show(probe_times[at])}")
         shapes = [(f"engine decode (1, {N}) k 2", (arrs, is_lead, 0))]
         shapes += [(f"engine finalize (1, {p_cap}) k {len(a[0])} fill {a[2]}",
                     a) for key, a in fin_k4.items()
@@ -1152,7 +1289,8 @@ def engine_windows(eng, windows, dev) -> tuple[dict, dict]:
                 P + 4 * k * kept + 4 * k * P, P)
             print(f"K4 compact_by_mask [{at}, {kept} kept]: "
                   f"{show(k4_times[at])}")
-    return errs, dict(compact_by_mask=k4_times, compact_piece_keys=k23_times)
+    return errs, dict(compact_by_mask=k4_times, compact_piece_keys=k23_times,
+                      vocab_probe8=probe_times)
 
 
 def window_choice(eng, host, text: str) -> None:
@@ -1193,12 +1331,14 @@ def window_choice(eng, host, text: str) -> None:
 
 RESIDENT_KERNELS = ("utf8_decode_block", "piece_starts_cp",
                     "piece_starts_words", "compact_piece_keys",
-                    "compact_by_mask", "compact_record", "expand_route")
+                    "compact_by_mask", "compact_record", "expand_route",
+                    "vocab_probe8")
 
 
 def resident_counters():
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import join as J
     from tokendagger_tpu_torch.ops import pretokenize as PT
 
     return dict(utf8_decode_block=PT.utf8_decode_block,
@@ -1207,7 +1347,7 @@ def resident_counters():
                 compact_piece_keys=CP.compact_piece_keys,
                 compact_by_mask=CP.compact_by_mask,
                 compact_record=CP.compact_record,
-                expand_route=CP.expand_route)
+                expand_route=CP.expand_route, vocab_probe8=J.vocab_probe8)
 
 
 # each kernel's launcher, by module: the one place its wrapper launches it
@@ -1219,7 +1359,8 @@ LAUNCHERS = (("utf8_decode_block", "pretokenize", "_launch_k9"),
              ("compact_by_mask", "compact", "_launch_k4"),
              ("compact_record", "compact", "_launch_k5k6"),
              ("expand_route", "compact", "_launch_k7k8"),
-             ("merge", "merge", "_launch"))
+             ("merge", "merge", "_launch"),
+             ("vocab_probe8", "join", "_launch_probe8"))
 
 
 def _arg_key(x):
@@ -1312,9 +1453,10 @@ def run_resident_phase(seed: int, dev, *, reps: int = 20,
         runs = run["piece_starts_words"] + run["piece_starts_cp"]
         per = 1 if cap else 3
         if run["compact_record"] != per * runs or run[
-                "expand_route"] != per * runs:
-            raise AssertionError(f"resident {label}: K5+K6/K7+K8 launched "
-                                 f"{run} times in {runs} pipeline runs")
+                "expand_route"] != per * runs or run["vocab_probe8"] != runs:
+            raise AssertionError(f"resident {label}: K5+K6/K7+K8 or the "
+                                 f"probe launched {run} times in {runs} "
+                                 "pipeline runs")
         if cap == 0 and (r.probe_impl != "hot"
                          or run["piece_starts_words"] != runs):
             raise AssertionError("resident auto cap: a hot route is off")
@@ -1343,9 +1485,11 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
     """K5+K6, K7+K8 and K1's class-word entry against their plain versions
     on the inputs the auto run gave them (``inputs``, as
     ``recorded_inputs`` keeps them), and on edge rows at the same shapes;
-    times at each shape."""
+    times at each shape; then the hot-piece route's kernels beside the
+    probe kernel on every slot of the probe's shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import join as J
 
     # in the order the pipeline launches them: decode, classes, probe
     k5 = [k for k in inputs if k[0] == "compact_record"]
@@ -1412,6 +1556,19 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
                                 "masked_scatter_"))
         for lab, t in (("K5+K6", t5[name]), ("K7+K8", t7[name])):
             print(f"{lab} [{name}, {n_set} of {B * N} set]: {show(t)}")
+    # the hot-piece route's kernels against the probe kernel on every slot
+    keys, unknown, u_cap, _ = inputs[k5[2]]
+    pk = next(k for k in inputs if k[0] == "vocab_probe8")
+    *dq, vrows, vmask = inputs[pk]
+    dense_ms = device_ms(lambda: J.vocab_probe8(*dq, vrows, vmask))
+    all_ms = device_ms(lambda: J.vocab_probe8(*keys, vrows, vmask))
+    route_ms = t5["probe"]["ms"] + dense_ms + t7["probe"]["ms"]
+    print(f"hot-piece route (auto run), device-only ms: K5+K6 "
+          f"{t5['probe']['ms']:.4f}, probe kernel on the {tuple(dq[0].shape)} "
+          f"prefix {dense_ms:.4f}, K7+K8 {t7['probe']['ms']:.4f}: "
+          f"{route_ms:.4f} without the hot-key compare (the probe stage's "
+          f"trace time holds it); probe kernel on all "
+          f"{tuple(keys[0].shape)} slots {all_ms:.4f}")
     for nm, src_, err, t in (
             ("compact_record", "tokendagger_tpu/ops/compact_pallas.py:434 "
              "(compact_tiles_masked) + :624 (degap_record)", err5, t5),
@@ -1457,7 +1614,8 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
 
 
 SHARED_KERNELS = ("utf8_decode_block", "piece_starts_cp",
-                  "compact_piece_keys", "compact_by_mask", "merge")
+                  "compact_piece_keys", "compact_by_mask", "merge",
+                  "vocab_probe8")
 
 
 def _fingerprint(args) -> str:
@@ -1491,8 +1649,9 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
     that a one-row batch takes them all: random bytes for K9; a ragged
     and an empty window for K1 (all four profiles); an empty window for
     K2+K3; an all-kept and an empty row for K4; an empty and a full-width
-    row for the merge. Times each kernel once at each shape. Returns each
-    kernel's largest error, and its timings by shape."""
+    row for the merge; a dead row, a row of length -1 and a row of hits in
+    full buckets for the probe. Times each kernel once at each shape.
+    Returns each kernel's largest error, and its timings by shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
     from tokendagger_tpu_torch.ops import merge as M
@@ -1573,6 +1732,13 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
                     lambda: CP.compact_by_mask_plain(arrays, mask,
                                                      fill=fill),
                     B * P + 4 * k * kept + 4 * k * B * P, B * P)
+        elif name == "vocab_probe8":
+            *q, rows, mask = args
+            shape = q[0].shape
+            err = max(probe_err(x, rows, mask)
+                      for x in [q] + probe_edges(q, rows))
+            if key not in timed:
+                t = time_probe(q, rows, mask)
         else:                                       # merge
             by, ln, byte_rank, rows, mask, lut = args
             R, W = shape = by.shape
@@ -1644,8 +1810,9 @@ def check_grid_kernels(seed: int, dev) -> tuple[dict, dict, dict]:
     three grid shapes, stage by stage as ``ops/batched.resolve_grid``
     runs them, on seeded multi-script rows with edge rows (empty, exactly
     W chars, one piece, all whitespace): K9, K4 in the decode, K1's row
-    entry (all four profiles), K2+K3 on byte flags with p_cap = W, and K4
-    in finalize_host. Returns K1's row-entry row of the kernels line, and
+    entry (all four profiles), K2+K3 on byte flags with p_cap = W, the
+    probe on the stand-in's table (with its edge rows) and K4 in
+    finalize_host. Returns K1's row-entry row of the kernels line, and
     each kernel's largest error and timings by shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
@@ -1653,7 +1820,8 @@ def check_grid_kernels(seed: int, dev) -> tuple[dict, dict, dict]:
     from tokendagger_tpu_torch.ops.fused import finalize_host
 
     names = ("utf8_decode_block", "piece_starts_rows", "compact_piece_keys",
-             "compact_by_mask")
+             "compact_by_mask", "vocab_probe8")
+    vrows, vmask, _ = standin_table(seed, dev)
     errs = dict.fromkeys(names, 0)
     times: dict = {n: {} for n in names}
     passes = {}
@@ -1714,6 +1882,10 @@ def check_grid_kernels(seed: int, dev) -> tuple[dict, dict, dict]:
         npc = int(keys[6].sum())
         k23_at = f"{at} byte flags p_cap {W}"
         times["compact_piece_keys"][k23_at] = time_k23(stb, by, nb, W, False)
+        q = probe_args(keys)
+        e["vocab_probe8"] = max(probe_err(x, vrows, vmask)
+                                for x in [q] + probe_edges(q, vrows))
+        times["vocab_probe8"][at] = time_probe(q, vrows, vmask)
         # finalize_host's two K4 calls, with every piece longer than 6
         # bytes missed
         rank = torch.where(keys[1] > 6, -1, keys[2] & 0xFFFF)
@@ -1755,7 +1927,7 @@ def check_grid_kernels(seed: int, dev) -> tuple[dict, dict, dict]:
 
 
 BATCH_KERNELS = ("utf8_decode_block", "piece_starts_rows", "piece_starts_cp",
-                 "compact_piece_keys", "compact_by_mask")
+                 "compact_piece_keys", "compact_by_mask", "vocab_probe8")
 
 
 def count_runs(counters: dict, fn):
@@ -1896,7 +2068,7 @@ def run_batch(seed: int, dev) -> dict:
 
 
 CORPUS_KERNELS = ("utf8_decode_block", "piece_starts_cp",
-                  "compact_piece_keys", "compact_by_mask")
+                  "compact_piece_keys", "compact_by_mask", "vocab_probe8")
 
 
 def run_corpus(seed: int, dev, n_files: int = 32) -> dict:
@@ -1967,7 +2139,7 @@ def run_corpus(seed: int, dev, n_files: int = 32) -> dict:
 
 
 STREAMING_KERNELS = ("utf8_decode_block", "compact_piece_keys",
-                     "compact_by_mask")
+                     "compact_by_mask", "vocab_probe8")
 
 
 def run_streaming(seed: int, dev) -> dict:
@@ -2816,7 +2988,8 @@ def run_pieces(seed: int, dev, n_bytes: int = 9 << 19
               f"spliced; stage times (host clock, s): safe_cut "
               f"{st.safe_cut_s:.4f}, device {st.device_s:.4f}, drain "
               f"{st.drain_s:.4f}; launches {json.dumps(n)}")
-        dead = [k for k, v in n.items() if not v and k != "piece_starts_rows"]
+        dead = [k for k, v in n.items() if not v and k != "piece_starts_rows"
+                and not (join == "sort" and k == "vocab_probe8")]
         if (dev != "cpu" and dead) or st.host_advance_windows:
             raise AssertionError(f"window {join}: kernels never launched "
                                  f"{dead}, or a window overflowed")
@@ -2855,21 +3028,26 @@ def run_pieces(seed: int, dev, n_bytes: int = 9 << 19
 # (label, text, run_resident arguments, impl expected, kernels that must
 # launch in the run)
 SINGLE_RUNS = (
-    ("auto", "multiscript", {}, "sort", ("piece_starts_cp",)),
-    ("ascii auto", "ascii", {}, "ascii-sort", ("piece_starts_cp",)),
+    ("auto", "multiscript", {}, "sort", ("piece_starts_cp", "vocab_probe8")),
+    ("ascii auto", "ascii", {}, "ascii-sort",
+     ("piece_starts_cp", "vocab_probe8")),
     ("scatter", "multiscript", dict(impl="scatter"), "scatter",
-     ("utf8_decode_block", "piece_starts_cp", "compact_by_mask")),
+     ("utf8_decode_block", "piece_starts_cp", "compact_by_mask",
+      "vocab_probe8")),
     ("device/probe", "multiscript", dict(miss_mode="device"), "sort",
-     ("piece_starts_cp", "compact_piece_keys", "compact_by_mask", "merge")),
+     ("piece_starts_cp", "compact_piece_keys", "compact_by_mask", "merge",
+      "vocab_probe8")),
     ("device/sort", "multiscript", dict(miss_mode="device",
                                         join_mode="sort"), "sort",
      ("piece_starts_cp", "compact_piece_keys", "compact_by_mask", "merge")),
 )
 # the batched formulations: (impl, starts_impl) with compact_impl="sort"
-FORMULATIONS = (("sort", "jnp", ()), ("sort", "bits", ("piece_starts_cp",)),
-                ("scatter", "jnp", ("utf8_decode_block", "compact_by_mask")),
+FORMULATIONS = (("sort", "jnp", ("vocab_probe8",)),
+                ("sort", "bits", ("piece_starts_cp", "vocab_probe8")),
+                ("scatter", "jnp", ("utf8_decode_block", "compact_by_mask",
+                                    "vocab_probe8")),
                 ("scatter", "bits", ("utf8_decode_block", "piece_starts_cp",
-                                     "compact_by_mask")))
+                                     "compact_by_mask", "vocab_probe8")))
 
 
 def single_counters():
@@ -2879,7 +3057,8 @@ def single_counters():
     return dict(utf8_decode_block=c["utf8_decode_block"],
                 piece_starts_cp=c["piece_starts_cp"],
                 compact_piece_keys=c["compact_piece_keys"],
-                compact_by_mask=c["compact_by_mask"], merge=M.merge_rows)
+                compact_by_mask=c["compact_by_mask"], merge=M.merge_rows,
+                vocab_probe8=c["vocab_probe8"])
 
 
 def single_texts(seed: int) -> dict:
@@ -3163,6 +3342,7 @@ MESH_CANDIDATES = 450_000               # stand-in ranks before the audit
 def mesh_counters():
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import join as J
     from tokendagger_tpu_torch.ops import merge as M
     from tokendagger_tpu_torch.ops import pretokenize as PT
 
@@ -3175,7 +3355,8 @@ def mesh_counters():
                 compact_piece_keys=CP.compact_piece_keys,
                 compact_by_mask=CP.compact_by_mask,
                 compact_record=CP.compact_record,
-                expand_route=CP.expand_route, merge=M.merge_rows)
+                expand_route=CP.expand_route, merge=M.merge_rows,
+                vocab_probe8=J.vocab_probe8)
 
 
 def reachable_vocab(seed: int) -> dict[bytes, int]:
@@ -3261,6 +3442,7 @@ def hold_recorded(seen: dict, label: str) -> dict:
     error and fails on any difference."""
     from tokendagger_tpu_torch.ops import bitplane as BP
     from tokendagger_tpu_torch.ops import compact as CP
+    from tokendagger_tpu_torch.ops import join as J
     from tokendagger_tpu_torch.ops import merge as M
     from tokendagger_tpu_torch.ops import pretokenize as PT
 
@@ -3296,6 +3478,10 @@ def hold_recorded(seen: dict, label: str) -> dict:
             return ([*got[0], got[1], got[2]], [*want[0], want[1], want[2]])
         if name == "expand_route":
             return ([CP.expand_route(*a)], [CP.expand_route_plain(*a)])
+        if name == "vocab_probe8":
+            *q, rows, mask = a
+            return ([J.vocab_probe8(*q, rows, mask)],
+                    [J.vocab_probe8_plain(*q, rows, mask)])
         by, ln, br, rows, mask, lut = a
         return (M.merge_rows(by, ln, br, rows, mask, lut),
                 M.merge_rows_local(by, ln, br, rows, mask=mask,
@@ -3644,6 +3830,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     rows = check_kernels(args.seed, "cuda") + check_engine_kernels(
         args.seed, "cuda")
+    rows.append(check_probe_kernel(args.seed, "cuda"))
     k1_group_err, k1_group_times = check_k1_groups(args.seed, "cuda")
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], k1_group_err)
     # each path runs with the counts set to 0 just before it; a kernel on

@@ -1026,3 +1026,156 @@ def test_mesh_two_cards_equal_cpu(dev, tmp_path):
             pair[0]["mesh"][i][:9], pair[1]["mesh"][i][:9])] + list(
             pair[0]["mesh"][i][9:])
         U.assert_equal(got, U.port_d1(ranks, cfgs[n]))
+
+
+# ---------------------------------------------------------------------------
+# The whole-piece probe kernel (csrc/probe.cu)
+# ---------------------------------------------------------------------------
+
+
+def _probe_table(seed: int, n: int = 200_000):
+    """A vhash8 table of n seeded pieces of 1-16 bytes (2^18 buckets at
+    200,000, as Llama-4's), built by _build_vocab_hash8: (rows, mask, the
+    pieces' (n, 4) uint32 words and lengths, and the indices of the pieces
+    the table answers, not dropped from a full bucket)."""
+    from tokendagger_tpu_torch.ops.join import vocab_probe8_np
+    from tokendagger_tpu_torch.tables import _build_vocab_hash8
+
+    rng = np.random.default_rng(seed)
+    ln = rng.integers(1, 17, n).astype(np.int32)
+    by = rng.integers(0, 256, (n, 16)).astype(np.uint8)
+    by[np.arange(16)[None, :] >= ln[:, None]] = 0
+    qk = by.view("<u4").reshape(n, 4).copy()
+    rk = rng.permutation(n).astype(np.int32)
+    rows, mask, _ = _build_vocab_hash8(qk, ln, rk)
+    found = np.flatnonzero(vocab_probe8_np(qk, ln, rows, mask) >= 0)
+    return rows, mask, qk, ln, found
+
+
+def _probe_queries(shape, seed, table):
+    """(k0, k1, k2, k3, len) int32 arrays of ``shape``: ~55% the table's
+    pieces, ~30% random words of lengths -1-40, the rest dead (length 0,
+    zero keys); the first rows (or, for one row, the first spans) are edge
+    cases: all dead, all hits, the fullest bucket's pieces (some dropped),
+    and length -1 with zero keys."""
+    from tokendagger_tpu_torch.tables import _mix_hash, _vhash_ab
+
+    rows, mask, qk, ln, found = table
+    rng = np.random.default_rng(seed)
+    P = int(np.prod(shape))
+    pick = rng.integers(0, len(ln), P)
+    words = qk[pick].copy()
+    lens = ln[pick].copy()
+    kind = rng.random(P)
+    wild = kind > 0.55
+    words[wild] = rng.integers(0, 2**32, (int(wild.sum()), 4),
+                               dtype=np.uint64).astype(np.uint32)
+    lens[wild] = rng.integers(-1, 41, int(wild.sum()))
+    dead = kind > 0.85
+    words[dead], lens[dead] = 0, 0
+    h = _mix_hash(*_vhash_ab(qk[:, 0], qk[:, 1], qk[:, 2], qk[:, 3], ln), 0,
+                  mask)
+    full = np.flatnonzero(h == np.bincount(h).argmax())
+    span = max(1, min(P // 4, shape[-1]))
+    edges = [(np.zeros((span, 4), np.uint32), np.zeros(span, np.int32)),
+             (qk[np.resize(found, span)], ln[np.resize(found, span)]),
+             (qk[np.resize(full, span)], ln[np.resize(full, span)]),
+             (np.zeros((span, 4), np.uint32), np.full(span, -1, np.int32))]
+    for e, (w, n) in enumerate(edges):
+        at = slice(e * span, (e + 1) * span)
+        if at.stop <= P:
+            words[at], lens[at] = w, n
+    wi = words.view(np.int32)
+    return [wi[:, j].reshape(shape).copy() for j in range(4)] + [
+        lens.reshape(shape)]
+
+
+@pytest.fixture(scope="module")
+def probe_table():
+    return _probe_table(0)
+
+
+@pytest.mark.parametrize("shape", [(8, 349_568), (1, 1_398_144), (256, 4096),
+                                   (8, 91_776), (3, 5), (1, 1)])
+def test_probe_kernel_equals_plain(dev, probe_table, shape):
+    """td_vocab_probe8 equals vocab_probe8_plain at the stream batch's and
+    the engine window's capacities, a grid shape and the hot route's dense
+    prefix, and on short calls, with edge rows: all dead, all hits, the
+    fullest bucket, length -1 with zero keys."""
+    from tokendagger_tpu_torch.ops import join as J
+
+    rows = torch.from_numpy(probe_table[0]).to(dev)
+    mask = probe_table[1]
+    q = [torch.from_numpy(x).to(dev)
+         for x in _probe_queries(shape, sum(shape), probe_table)]
+    before = J.vocab_probe8.launches
+    got = J.vocab_probe8(*q, rows, mask)
+    assert J.vocab_probe8.launches == before + 1
+    want = J.vocab_probe8_plain(*q, rows, mask)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == shape and got.dtype == torch.int32
+    assert torch.equal(got, want.to(torch.int32))
+    if shape[0] >= 4:
+        assert (got[0] == -1).all() and (got[1] >= 0).all()
+        assert (got[2] == -1).any() and (got[3] == 0).any()
+
+
+def test_cuda_tensors_never_reach_the_plain_probe(dev, monkeypatch):
+    """vocab_probe8 and its callers on CUDA tensors (the engine's windows,
+    the grids, run_resident's batched pipeline with and without the hot
+    route's dense prefix) run the kernel: the plain version raises if
+    reached."""
+    from conftest import make_tiny_vocab
+    from tokendagger_tpu_torch import (
+        LLAMA4_PATTERN, HostEngine, Tokenizer, run_resident,
+    )
+    from tokendagger_tpu_torch.ops import join as J
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain probe")
+
+    monkeypatch.setattr(J, "vocab_probe8_plain", refuse)
+    with pytest.raises(AssertionError, match="plain probe"):
+        z = torch.zeros(4, dtype=torch.int32)
+        J.vocab_probe8(z, z, z, z, z, torch.zeros((1024, 48),
+                                                  dtype=torch.int32), 1023)
+    ranks, specials = make_tiny_vocab()
+    rng = np.random.default_rng(3)
+    text = multiscript_text(rng, 30000)
+    short = [multiscript_text(rng, int(k)) for k in rng.integers(5, 300, 40)]
+    host = HostEngine(LLAMA4_PATTERN, ranks, specials)
+    tok = Tokenizer("t", pat_str=LLAMA4_PATTERN, mergeable_ranks=ranks,
+                    special_tokens=specials, device=dev)
+    before = J.vocab_probe8.launches
+    assert tok.encode_ordinary(text) == host.encode_ordinary(text)
+    assert tok.encode_batch(short) == [host.encode_ordinary(t)
+                                       for t in short]
+    assert J.vocab_probe8.launches >= before + 2
+    corpus = multiscript_text(rng, 2 * 32768).encode()
+    for cap in (3.0, 0):
+        before = J.vocab_probe8.launches
+        r = run_resident(ranks, specials, LLAMA4_PATTERN, corpus,
+                         window=32768, n_windows=2, batch=2, reps=1,
+                         cap_bytes_per_piece=cap, probe_impl="chunks",
+                         overlap_trial=False, device=dev)
+        assert r.match_host and r.overflow_windows == 0
+        assert J.vocab_probe8.launches > before
+
+
+def test_probe_on_a_second_card(dev, probe_table):
+    """The probe runs on its tensors' card: cuda:1 while cuda:0 is the
+    current card, against the CPU."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from tokendagger_tpu_torch.ops import join as J
+
+    q = _probe_queries((4, 5000), 11, probe_table)
+    want = J.vocab_probe8(*map(torch.from_numpy, q),
+                          torch.from_numpy(probe_table[0]), probe_table[1])
+    with torch.cuda.device(0):
+        d1 = torch.device("cuda:1")
+        got = J.vocab_probe8(*(torch.from_numpy(x).to(d1) for x in q),
+                             torch.from_numpy(probe_table[0]).to(d1),
+                             probe_table[1])
+        assert got.device == d1
+        assert torch.equal(got.cpu(), want)

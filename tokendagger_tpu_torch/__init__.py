@@ -8,9 +8,9 @@ named-encoding registry, ``StreamingEncoder``, ``load_tekken``, the
 corpus job runner ``corpus.CorpusProcessor`` and the command line
 ``cli``), of the ASCII corpus pipeline (``ResidentStream``) and of the
 window-batch harness ``run_resident`` with its general (multi-byte)
-pipeline: plain torch for the table probe, the decode and the glue,
-hand-written CUDA kernels for Hopper (``csrc/``) where the JAX package
-has Pallas kernels. Entry points run on the card unless the
+pipeline: hand-written CUDA kernels for Hopper (``csrc/``) where the
+JAX package has Pallas kernels, and for its XLA merge and whole-piece
+probe; plain torch for the glue. Entry points run on the card unless the
 caller passes ``device="cpu"`` (or ``backend="host"``); on CPU tensors
 every kernel's wrapper runs its plain torch version instead.
 """

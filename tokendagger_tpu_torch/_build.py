@@ -7,7 +7,8 @@ the sources and flags, so an edited source rebuilds and an unchanged one
 is reused. ``build_all`` starts one nvcc per source at once.
 
 ``csrc/piece_starts_host.cpp`` is the host build of the K1 derivation and
-``csrc/merge_host.cpp`` that of the merge's row routines, for the CPU
+``csrc/merge_host.cpp`` that of the merge's row routines and
+``csrc/probe_host.cpp`` that of the probe's piece routines, for the CPU
 tests; they are compiled the same way with the system C++ compiler.
 
 ``native_build`` compiles the native host engine (``native/tdnative.cpp``,
@@ -28,7 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("_build")
-CUDA_SOURCES = ("piece_starts", "compact", "utf8", "route", "merge")
+CUDA_SOURCES = ("piece_starts", "compact", "utf8", "route", "merge",
+                "probe")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,7 +14,7 @@ Per window, on the device:
 2. char-level piece starts: ``ops/bitplane.piece_starts_chars`` (kernel
    K1, codepoint entry), mapped to byte flags by ``starts_to_bytes``;
 3. piece keys: ``ops/compact.compact_piece_keys`` (kernel K2+K3);
-4. whole-piece probe: ``ops/join.vocab_probe8`` (plain torch);
+4. whole-piece probe: ``ops/join.vocab_probe8`` (the probe kernel);
 5. trim-aware finalize: ``ops/fused.finalize_host`` (kernel K4 twice).
 
 One small device-to-host copy then reads the overflow flag, the id count,

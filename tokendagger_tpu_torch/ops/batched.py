@@ -19,7 +19,7 @@ stages are those of ``engine.DeviceEngine.window_pipeline`` over the grid:
 3. ``compact.compact_piece_keys`` on the byte flags (kernel K2+K3, with
    ``p_cap = W``: a W-byte row cannot hold more than W pieces, so there is
    no overflow route);
-4. ``join.vocab_probe8`` on the pieces (plain torch, as in the engine);
+4. ``join.vocab_probe8`` on the pieces (the probe kernel, as in the engine);
 5. ``fused.finalize_host`` (kernel K4 twice).
 
 The reference runs plain XLA stages under ``vmap`` here, and pads every

@@ -7,9 +7,12 @@ compares all slots exactly: rank on a hit, -1 on a miss. A miss can be
 deliberate (bucket overflow entries are dropped from the table); the host
 splice does the oracle's whole-piece dict lookup first, so it is exact.
 
-This stage is plain torch on every device: the JAX package runs it as
-plain XLA too (``ops/join.vocab_probe8t_chunks``, whose 16/48/96-way
-chunking only worked around the TPU's gather scheduling).
+``vocab_probe8`` is the kernel's wrapper: CUDA tensors run
+``csrc/probe.cu`` (``td_vocab_probe8``), which replaces the XLA program of
+the JAX package's ``ops/join.vocab_probe8t_chunks`` (no ``pallas_call``;
+its 16/48/96-way chunking only worked around the TPU's gather
+scheduling); CPU tensors run ``vocab_probe8_plain``. It never falls back
+from one to the other.
 
 ``vocab_join`` is the same lookup as a sort-merge join against the
 vocabulary's whole-piece keys (``join_mode="sort"``): the JAX package runs
@@ -18,8 +21,9 @@ the port runs it with ``torch.sort``.
 
 ``vocab_probe`` is the same lookup against the 4-slot, two-choice table
 of ``tables.build_vocab_hash``: two 96-byte row gathers per piece. No
-path reads it; ``vocab_probe8_np`` and ``vocab_probe_np`` are numpy
-oracles of both probes, for tests.
+path reads it, so it stays plain torch on every device;
+``vocab_probe8_np`` and ``vocab_probe_np`` are numpy oracles of both
+probes, for tests.
 
 ``vocab_probe_hot`` answers a host-chosen set of hot pieces by compare and
 probes only the rest, compacted to a dense prefix by kernel K5+K6 and put
@@ -28,6 +32,7 @@ back by K7+K8 (``compact.compact_record`` / ``expand_route``).
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -82,12 +87,10 @@ def vhash_ab(k0, k1, k2, k3, length):
     return a, b
 
 
-def vocab_probe8(qk0, qk1, qk2, qk3, qlen, rows: torch.Tensor,
-                 mask: int) -> torch.Tensor:
-    """Rank of each piece whose key words and length match a slot of its
-    bucket row, else -1. Keys are int32 tensors (uint32 bits), ``qlen``
-    int32, ``rows`` the (nb, 48) int32 vhash8 table on the same device;
-    any leading shape."""
+def vocab_probe8_plain(qk0, qk1, qk2, qk3, qlen, rows: torch.Tensor,
+                       mask: int) -> torch.Tensor:
+    """Plain torch version of ``vocab_probe8``: rank of each piece whose
+    key words and length match a slot of its bucket row, else -1."""
     a, b = vhash_ab(qk0, qk1, qk2, qk3, qlen)
     h = _mix(a, b, 0, mask)
     r = rows[h]                                          # (..., 48)
@@ -97,6 +100,66 @@ def vocab_probe8(qk0, qk1, qk2, qk3, qlen, rows: torch.Tensor,
         hit &= r[..., 8 * j : 8 * j + 8] == q.to(torch.int32)[..., None]
     ranks = torch.where(hit, r[..., 40:48], -1)
     return ranks.amax(dim=-1).to(torch.int32)
+
+
+@lru_cache(maxsize=None)
+def _library():
+    from .._build import cuda_library
+
+    lib = cuda_library("probe")
+    vp = ctypes.c_void_p
+    lib.td_vocab_probe8.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong,
+                                    vp, ctypes.c_uint, vp, vp]
+    lib.td_vocab_probe8.restype = ctypes.c_int
+    return lib
+
+
+def _launch_probe8(qk0, qk1, qk2, qk3, qlen, rows, mask: int):
+    from .compact import _check, _on
+
+    lib = _library()
+    dev = qlen.device
+    out = torch.empty(qlen.shape, dtype=torch.int32, device=dev)
+    with _on(dev) as stream:
+        rc = lib.td_vocab_probe8(
+            qk0.data_ptr(), qk1.data_ptr(), qk2.data_ptr(), qk3.data_ptr(),
+            qlen.data_ptr(), qlen.numel(), rows.data_ptr(), mask,
+            out.data_ptr(), stream)
+    _check(rc, "vocab_probe8")
+    vocab_probe8.launches += 1
+    return out
+
+
+def vocab_probe8(qk0, qk1, qk2, qk3, qlen, rows: torch.Tensor,
+                 mask: int) -> torch.Tensor:
+    """Rank of each piece whose key words and length match a slot of its
+    bucket row, else -1. Keys are int32 tensors (uint32 bits), ``qlen``
+    int32, all of one shape (any rank), ``rows`` the (mask + 1, 48) int32
+    vhash8 table on the same device. CUDA tensors run kernel
+    ``td_vocab_probe8``; CPU tensors ``vocab_probe8_plain``."""
+    from .compact import _require
+
+    shape = tuple(qlen.shape)
+    dev = qlen.device
+    if (rows.dim() != 2 or rows.shape[1] != 48
+            or rows.shape[0] != mask + 1 or mask & (mask + 1)):
+        raise ValueError("rows must be the (mask + 1, 48) vhash8 table")
+    for name, q in (("qk0", qk0), ("qk1", qk1), ("qk2", qk2), ("qk3", qk3),
+                    ("qlen", qlen)):
+        _require(q, name, shape, torch.int32, dev)
+    _require(rows, "rows", rows.shape, torch.int32, dev)
+    if dev.type == "cuda":
+        if rows.data_ptr() % 16:
+            raise ValueError("the vhash8 table must be 16-byte aligned")
+        if qlen.numel() == 0:
+            return torch.empty(shape, dtype=torch.int32, device=dev)
+        return _launch_probe8(qk0, qk1, qk2, qk3, qlen, rows, mask)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return vocab_probe8_plain(qk0, qk1, qk2, qk3, qlen, rows, mask)
+
+
+vocab_probe8.launches = 0
 
 
 def vocab_probe(qk0, qk1, qk2, qk3, qlen, rows: torch.Tensor,

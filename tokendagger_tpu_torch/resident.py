@@ -105,6 +105,7 @@ TRACED_KERNELS = (
     (compact.compact_record, "record_kernel"),
     (compact.expand_route, "route_expand_kernel"),
     (merge.merge_rows, "merge_rows_group"),
+    (vocab_probe8, "vocab_probe8_kernel"),
 )
 
 

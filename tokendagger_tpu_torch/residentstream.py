@@ -8,7 +8,7 @@ windows (1 MB x 8 by default). Per batch, on the device:
 2. compaction: ``ops/compact.compact_piece_keys`` (kernel K2+K3) gives each
    piece's start, length and 16-byte key words;
 3. whole-piece probe: ``ops/join.vocab_probe8`` against the ``vhash8``
-   table (plain torch);
+   table (the probe kernel, ``csrc/probe.cu``);
 4. finalize: ``ops/compact.finalize`` writes flat ids with SENTINEL for each
    miss and compacts the miss spans (kernel K4).
 

@@ -17,14 +17,16 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def build(source: str, change, name: str, kernel: str, out: Path) -> Path:
-    """csrc/``source`` with ``change`` = (old, new) replaced at every
-    occurrence (None: as it is), built by nvcc for sm_90a into ``out``;
-    prints ``kernel``'s register and spill lines."""
+    """csrc/``source`` with ``change`` = (old, new), or a list of such
+    pairs in turn, replaced at every occurrence (None: as it is), built by
+    nvcc for sm_90a into ``out``; prints ``kernel``'s register and spill
+    lines."""
     from tokendagger_tpu_torch._build import CSRC, NVCC_FLAGS, _nvcc
 
     text = (CSRC / source).read_text()
-    if change is not None:
-        old, new = change
+    pairs = [] if change is None else (
+        change if isinstance(change, list) else [change])
+    for old, new in pairs:
         if old not in text:
             raise RuntimeError(f"{name}: {old!r} is not in {source}")
         text = text.replace(old, new)
