@@ -295,6 +295,69 @@ def test_engine_card_equals_cpu(dev):
     assert tok.decode(ids) == sample
 
 
+def test_window_spans_share_the_device_clock(dev, tmp_path):
+    """A traced encode of a 1 MB multi-script text: every stage of a
+    window launched device work (``stage_device_us`` over the
+    ``td.window.*`` ranges); each window's last kernel or copy ends by the
+    end of its ``td.window.read`` range, plus 50 µs (the ranges lie on the
+    clock of the device events); the ``td.window`` ranges sum to the
+    ``device_s`` delta within 10%."""
+    from conftest import make_tiny_vocab
+    from tokendagger_tpu_torch import LLAMA4_PATTERN, HostEngine, Tokenizer
+    from tokendagger_tpu_torch.utils import profiling
+
+    ranks, specials = make_tiny_vocab()
+    rng = np.random.default_rng(17)
+    text = multiscript_text(rng, 640_000)
+    assert len(text.encode()) > 1_000_000
+    plain = HostEngine(LLAMA4_PATTERN, {bytes([i]): i for i in range(256)},
+                       {})
+    for a, b in plain.split_spans(text):       # every piece a whole token
+        ranks.setdefault(text[a:b].encode(), len(ranks))
+    specials = {k: v + len(ranks) for k, v in specials.items()}
+    tok = Tokenizer("t", pat_str=LLAMA4_PATTERN, mergeable_ranks=ranks,
+                    special_tokens=specials, device="cuda")
+    want = tok.encode(text, allowed_special="all")   # builds, warms up
+    eng = tok._get_device()
+    with profiling.profile_trace(str(tmp_path)):
+        tok.encode(text[:5000], allowed_special="all")  # the trace settles
+        torch.cuda.synchronize()
+        d0 = eng.stats.device_s
+        got = [tok.encode(text, allowed_special="all") for _ in range(3)]
+        d1 = eng.stats.device_s
+    assert all(g == want for g in got)
+    events = profiling.trace_events(str(tmp_path))
+    stages = ["td.window.stage", "td.window.decode", "td.window.starts",
+              "td.window.compact", "td.window.probe", "td.window.finalize",
+              "td.window.read"]
+    us = profiling.stage_device_us(events, stages)
+    assert sorted(us) == sorted(stages)
+    assert all(v > 0 for v in us.values()), us
+
+    def ranges(name):
+        return sorted((e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+                      if e.get("ph") == "X" and e.get("name") == name
+                      and e.get("cat") == "user_annotation")
+    windows, reads = ranges("td.window"), ranges("td.window.read")
+    assert len(windows) == len(reads) >= 4
+    launch = {e["args"]["correlation"]: (e["ts"], e["tid"]) for e in events
+              if e.get("ph") == "X"
+              and e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    device = [(launch.get(e.get("args", {}).get("correlation")),
+               e["ts"] + e["dur"]) for e in events
+              if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    for (a, b, tid), (_, read_end, _) in zip(windows, reads):
+        ends = [end for at, end in device
+                if at is not None and at[1] == tid and a <= at[0] <= b]
+        assert ends and max(ends) <= read_end + 50.0, (max(ends), read_end)
+    calls = ranges("td.encode")[1:]                  # the three timed
+    traced_s = sum(b - a for a, b, _ in windows
+                   if any(c <= a <= d for c, d, _ in calls)) * 1e-6
+    assert traced_s == pytest.approx(d1 - d0, rel=0.10)
+
+
 # ---------------------------------------------------------------------------
 # The general pipeline's kernels: K5+K6, K7+K8, K1's class-word entry
 # ---------------------------------------------------------------------------

@@ -45,6 +45,14 @@ first call that needs them, so that a stream engine's construction costs
 nothing more.
 Miss splicing and the other host work run outside it.
 
+``EngineStats`` counts the work and times its sections on the host clock.
+While a ``torch.profiler`` trace records, the same sections and each
+window's stages are ``td.*`` ranges on the trace's clock
+(``utils/profiling.span``): ``td.window`` with ``td.window.stage``, one
+range a stage and ``td.window.read``; ``td.drain`` with ``td.copyback`` and
+``td.splice``; ``td.safe_cut``, ``td.grid``, ``td.merge``,
+``td.host_advance``, ``td.specials``, ``td.utf8`` and ``td.lists``.
+
 A window is cut at a *safe* offset (``_safe_cut_threshold``): pieces that
 end before the start of the character-class run touching the window's end
 (minus lookahead slack) cannot change with the bytes after it; the rest is
@@ -79,6 +87,7 @@ from .ops.merge import merge_rows
 from .ops.pretokenize import starts_to_bytes, utf8_decode
 from .streaming import _safe_cut_chars, coarse_classes
 from .tables import all_reachable
+from .utils.profiling import span
 from .vocab import classify_pattern
 
 # Window shapes: every device call uses one of these lengths.
@@ -111,7 +120,10 @@ class EngineStats:
     cut_windows: int = 0           # windows ended at a safe cut
     grown_windows: int = 0         # windows retried larger (no safe cut)
     host_advance_windows: int = 0  # overflow / over-long runs, host-encoded
-    spliced_pieces: int = 0        # device misses merged on the host
+    spliced_pieces: int = 0        # device misses spliced on the host
+    # of those, whole tokens (the rest took byte_pair_merge): pieces over
+    # the probe's 16-byte keys, and tokens its table dropped
+    spliced_whole: int = 0
     grid_rows: int = 0             # short segments resolved in grids
     # (rows, width) grids run, by width
     grids_by_width: dict[int, int] = field(default_factory=dict)
@@ -273,33 +285,35 @@ class DeviceEngine:
         a geometrically grown host window) and return (ids,
         consumed_bytes) so the caller resumes the device path right after
         it."""
-        t = time.perf_counter()
-        self._tally(host_advance_windows=1)
-        n = len(data)
-        wsize = max(self._max_window, 1 << 16) * 4
-        while True:
-            end = min(n, base + wsize)
-            while end < n and (data[end] & 0xC0) == 0x80:
-                end += 1  # align to a char boundary
-            text = data[base:end].decode("utf-8", errors="strict")
-            if end >= n:
-                ids = self.host.encode_ordinary(text)
+        with span("td.host_advance"):
+            t = time.perf_counter()
+            self._tally(host_advance_windows=1)
+            n = len(data)
+            wsize = max(self._max_window, 1 << 16) * 4
+            while True:
+                end = min(n, base + wsize)
+                while end < n and (data[end] & 0xC0) == 0x80:
+                    end += 1  # align to a char boundary
+                text = data[base:end].decode("utf-8", errors="strict")
+                if end >= n:
+                    ids = self.host.encode_ordinary(text)
+                    self._tally(host_s=time.perf_counter() - t)
+                    return np.asarray(ids, dtype=np.int64), n - base
+                rs_c = _safe_cut_chars(text)
+                last_end_c = 0
+                if rs_c > 0:
+                    for _, e in self.host.split_spans(text):
+                        if e > rs_c:
+                            break
+                        last_end_c = e
+                if last_end_c == 0:
+                    wsize *= 4  # run still spans the host window: grow
+                    continue
+                prefix = text[:last_end_c]
+                ids = self.host.encode_ordinary(prefix)
                 self._tally(host_s=time.perf_counter() - t)
-                return np.asarray(ids, dtype=np.int64), n - base
-            rs_c = _safe_cut_chars(text)
-            last_end_c = 0
-            if rs_c > 0:
-                for _, e in self.host.split_spans(text):
-                    if e > rs_c:
-                        break
-                    last_end_c = e
-            if last_end_c == 0:
-                wsize *= 4  # run still spans the host window: keep growing
-                continue
-            prefix = text[:last_end_c]
-            ids = self.host.encode_ordinary(prefix)
-            self._tally(host_s=time.perf_counter() - t)
-            return np.asarray(ids, dtype=np.int64), len(prefix.encode("utf-8"))
+                return (np.asarray(ids, dtype=np.int64),
+                        len(prefix.encode("utf-8")))
 
     def window_pipeline(self, data: torch.Tensor, nbytes: torch.Tensor,
                         trim: int, rows_out: dict | None = None):
@@ -310,71 +324,99 @@ class DeviceEngine:
         width)."""
         N = data.shape[1]
         p_cap = caps_for(N)["p_cap"]
-        cp, cob, boc, m = utf8_decode(data, nbytes)
-        starts = piece_starts_chars(cp, m, profile=self._profile)
-        if self.miss_mode != "host" or self.join_mode != "probe":
-            if self.miss_mode == "device" and self._missing_bytes:
-                raise ValueError("miss_mode='device' needs a rank for every "
-                                 "single byte")
+        resolve = self.miss_mode != "host" or self.join_mode != "probe"
+        if resolve and self.miss_mode == "device" and self._missing_bytes:
+            raise ValueError("miss_mode='device' needs a rank for every "
+                             "single byte")
+        with span("td.window.decode"):
+            cp, cob, boc, m = utf8_decode(data, nbytes)
+        with span("td.window.starts"):
+            starts = piece_starts_chars(cp, m, profile=self._profile)
+            if not resolve:
+                stb = starts_to_bytes(starts, cob, data, nbytes)
+        if resolve:
             mt = self.merge_tables()
-            return resolve_window(
-                starts, boc, data, nbytes, trim, mt.byte_rank, mt.pair_rows,
-                mt.pair_lut, mt.vk, mt.vlen, mt.vrank,
-                self.tables.vhash8_rows, mask=mt.pair_mask,
-                vhash_mask=self.tables.vhash8_mask, join_mode=self.join_mode,
-                miss_mode=self.miss_mode, rows_out=rows_out, **caps_for(N))
-        stb = starts_to_bytes(starts, cob, data, nbytes)
-        sb, pl, k0, k1, k2, k3, npc = compact_piece_keys(stb, data, nbytes,
-                                                         p_cap)
-        rank = vocab_probe8(k0, k1, k2, k3, pl, self.tables.vhash8_rows,
-                            self.tables.vhash8_mask)
-        return finalize_host(sb, pl, rank, npc, trim, p_cap=p_cap)
+            with span("td.window.resolve"):
+                return resolve_window(
+                    starts, boc, data, nbytes, trim, mt.byte_rank,
+                    mt.pair_rows, mt.pair_lut, mt.vk, mt.vlen, mt.vrank,
+                    self.tables.vhash8_rows, mask=mt.pair_mask,
+                    vhash_mask=self.tables.vhash8_mask,
+                    join_mode=self.join_mode, miss_mode=self.miss_mode,
+                    rows_out=rows_out, **caps_for(N))
+        with span("td.window.compact"):
+            sb, pl, k0, k1, k2, k3, npc = compact_piece_keys(stb, data,
+                                                             nbytes, p_cap)
+        with span("td.window.probe"):
+            rank = vocab_probe8(k0, k1, k2, k3, pl, self.tables.vhash8_rows,
+                                self.tables.vhash8_mask)
+        with span("td.window.finalize"):
+            return finalize_host(sb, pl, rank, npc, trim, p_cap=p_cap)
 
     def _fused_window(self, window: bytes, trim: int):
         """Run the device stages on one window. Returns (flat ids | None on
         capacity overflow, consumed_bytes)."""
-        with self._lock:
-            t = time.perf_counter()
-            n = len(window)
-            N = next(s for s in SCAN_SIZES if s >= n)
-            buf = np.zeros((1, N), dtype=np.uint8)
-            buf[0, :n] = np.frombuffer(window, dtype=np.uint8)
-            data = torch.from_numpy(buf).to(self.device)
-            nb = torch.tensor([n], dtype=torch.int32, device=self.device)
-            rows: dict = {}
-            (flat, total, _np, _nk, consumed, overflow, ms_s, ms_l,
-             n_ms) = self.window_pipeline(data, nb, trim, rows)
-            # the one synchronizing read of the window's scalars
-            ovf, total_i, n_ms_i, consumed_i, *n_rows = torch.stack(
-                [overflow.to(torch.int32), total, n_ms, consumed]
-                + [rows[w].to(torch.int32) for w in sorted(rows)],
-                dim=1)[0].tolist()
-            t2 = time.perf_counter()
-            if not ovf:
-                ids = flat[0, :total_i].cpu().numpy().astype(np.int64)
-                os_s = ms_s[0, :n_ms_i].cpu().numpy()
-                os_l = ms_l[0, :n_ms_i].cpu().numpy()
-        if ovf:
-            self._tally(windows=1, device_s=t2 - t)
-            return None, 0
-        if n_ms_i:
-            ids = self._splice_oversize(ids, window, os_s, os_l, n_ms_i)
-        self._tally(windows=1, device_s=t2 - t, spliced_pieces=n_ms_i,
-                    drain_s=time.perf_counter() - t2,
-                    merge_rows_by_width=dict(zip(sorted(rows), n_rows)))
+        # td.drain opens under the lock (the copy-back) and closes after the
+        # splice, which runs outside it; closing a span never opened does
+        # nothing
+        drain = span("td.drain")
+        try:
+            with self._lock:
+                with span("td.window"):
+                    t = time.perf_counter()
+                    with span("td.window.stage"):
+                        n = len(window)
+                        N = next(s for s in SCAN_SIZES if s >= n)
+                        buf = np.zeros((1, N), dtype=np.uint8)
+                        buf[0, :n] = np.frombuffer(window, dtype=np.uint8)
+                        data = torch.from_numpy(buf).to(self.device)
+                        nb = torch.tensor([n], dtype=torch.int32,
+                                          device=self.device)
+                    rows: dict = {}
+                    (flat, total, _np, _nk, consumed, overflow, ms_s, ms_l,
+                     n_ms) = self.window_pipeline(data, nb, trim, rows)
+                    with span("td.window.read"):
+                        # the one synchronizing read of the window's scalars
+                        ovf, total_i, n_ms_i, consumed_i, *n_rows = (
+                            torch.stack(
+                                [overflow.to(torch.int32), total, n_ms,
+                                 consumed]
+                                + [rows[w].to(torch.int32)
+                                   for w in sorted(rows)],
+                                dim=1)[0].tolist())
+                    t2 = time.perf_counter()
+                if ovf:
+                    self._tally(windows=1, device_s=t2 - t)
+                    return None, 0
+                drain.__enter__()
+                with span("td.copyback"):
+                    ids = flat[0, :total_i].cpu().numpy().astype(np.int64)
+                    os_s = ms_s[0, :n_ms_i].cpu().numpy()
+                    os_l = ms_l[0, :n_ms_i].cpu().numpy()
+            if n_ms_i:
+                with span("td.splice"):
+                    ids = self._splice_oversize(ids, window, os_s, os_l,
+                                                n_ms_i)
+            self._tally(windows=1, device_s=t2 - t,
+                        drain_s=time.perf_counter() - t2,
+                        merge_rows_by_width=dict(zip(sorted(rows), n_rows)))
+        finally:
+            drain.__exit__(None, None, None)
         return ids, consumed_i
 
     def _splice_oversize(self, ids: np.ndarray, window: bytes,
                          os_s: np.ndarray, os_l: np.ndarray,
                          n_os: int) -> np.ndarray:
         """Replace SENTINEL slots with the exact encoding of each missed
-        piece (both are in piece order)."""
+        piece (both are in piece order), and count the pieces in
+        ``stats``."""
         sent_pos = np.nonzero(ids == SENTINEL)[0]
         if len(sent_pos) != n_os:
             raise RuntimeError(f"{len(sent_pos)} SENTINEL slots for "
                                f"{n_os} missed pieces")
         parts = []
         prev = 0
+        whole = 0
         for j, p in enumerate(sent_pos):
             parts.append(ids[prev:p])
             piece = window[int(os_s[j]) : int(os_s[j]) + int(os_l[j])]
@@ -383,12 +425,15 @@ class DeviceEngine:
             # false miss (token dropped from the device hash table), and
             # merge(piece) == [rank] is a vocab property, not a guarantee
             r = self.ranks.get(piece)
+            if r is not None:
+                whole += 1
             parts.append(np.asarray(
                 [r] if r is not None else byte_pair_merge(piece, self.ranks),
                 dtype=ids.dtype,
             ))
             prev = p + 1
         parts.append(ids[prev:])
+        self._tally(spliced_pieces=n_os, spliced_whole=whole)
         return np.concatenate(parts)
 
     def encode_stream(self, data: bytes) -> np.ndarray:
@@ -405,9 +450,10 @@ class DeviceEngine:
             if is_final:
                 trim = len(window)
             else:
-                t = time.perf_counter()
-                trim = self._safe_cut_threshold(window)
-                self._tally(safe_cut_s=time.perf_counter() - t)
+                with span("td.safe_cut"):
+                    t = time.perf_counter()
+                    trim = self._safe_cut_threshold(window)
+                    self._tally(safe_cut_s=time.perf_counter() - t)
             result = (None, 0)
             if trim > 0:
                 result = self._fused_window(window, trim)
@@ -483,22 +529,22 @@ class DeviceEngine:
                 for r, (_, s) in enumerate(batch):
                     buf[r, : len(s)] = np.frombuffer(s, dtype=np.uint8)
                     lens[r] = len(s)
-                with self._lock:
-                    t = time.perf_counter()
-                    flat, total, ms_s, ms_l, n_ms = resolve_grid(
-                        buf, lens, vhash_rows=self.tables.vhash8_rows,
-                        vhash_mask=self.tables.vhash8_mask,
-                        profile=self._profile)
-                for r, (i, s) in enumerate(batch):
-                    ids = flat[r, : total[r]].astype(np.int64)
-                    k = int(n_ms[r])
-                    if k:
-                        ids = self._splice_oversize(ids, s, ms_s[r],
-                                                    ms_l[r], k)
-                    out[i] = ids
-                self._tally(grid_rows=len(batch), grids_by_width={w: 1},
-                            spliced_pieces=int(n_ms.sum()),
-                            grid_s=time.perf_counter() - t)
+                with span("td.grid"):
+                    with self._lock:
+                        t = time.perf_counter()
+                        flat, total, ms_s, ms_l, n_ms = resolve_grid(
+                            buf, lens, vhash_rows=self.tables.vhash8_rows,
+                            vhash_mask=self.tables.vhash8_mask,
+                            profile=self._profile)
+                    for r, (i, s) in enumerate(batch):
+                        ids = flat[r, : total[r]].astype(np.int64)
+                        k = int(n_ms[r])
+                        if k:
+                            ids = self._splice_oversize(ids, s, ms_s[r],
+                                                        ms_l[r], k)
+                        out[i] = ids
+                    self._tally(grid_rows=len(batch), grids_by_width={w: 1},
+                                grid_s=time.perf_counter() - t)
 
     # ==================================================================
     # Piece path (host split, device merge; exact for any tokenizer)
@@ -564,7 +610,7 @@ class DeviceEngine:
                     buf[row, : len(p)] = np.frombuffer(p, dtype=np.uint8)
                     lens[row] = len(p)
                 mt = self.merge_tables()
-                with self._lock:
+                with self._lock, span("td.merge"):
                     t = time.perf_counter()
                     tok, _ = merge_rows(
                         torch.from_numpy(buf).to(self.device),
@@ -586,8 +632,11 @@ class DeviceEngine:
         """Ordinary-encode texts: the stream path, or on the piece path
         every text's pieces in one ``encode_pieces`` call."""
         if self.stream:
-            return [f.tolist() for f in self.encode_streams(
-                [s.encode("utf-8") for s in segments])]
+            with span("td.utf8"):
+                datas = [s.encode("utf-8") for s in segments]
+            flats = self.encode_streams(datas)
+            with span("td.lists"):
+                return [f.tolist() for f in flats]
         pieces: list[bytes] = []
         bounds = []
         for s in segments:
@@ -596,8 +645,9 @@ class DeviceEngine:
                           for a, b in self.host.split_spans(s))
             bounds.append((lo, len(pieces)))
         encoded = self.encode_pieces(pieces)
-        return [[i for ids in encoded[lo:hi] for i in ids]
-                for lo, hi in bounds]
+        with span("td.lists"):
+            return [[i for ids in encoded[lo:hi] for i in ids]
+                    for lo, hi in bounds]
 
     def encode_ordinary_batch(self, texts: list[str]) -> list[list[int]]:
         return self._encode_segments(list(texts))
@@ -609,26 +659,28 @@ class DeviceEngine:
         text's ordinary segments encoded together on the device."""
         segments: list[str] = []
         plans: list[list[tuple[str, int]]] = []
-        for text in texts:
-            plan: list[tuple[str, int]] = []
-            for seg_text, special_id in self._split_specials(text,
-                                                             allowed_special):
-                if special_id is not None:
-                    plan.append(("sp", special_id))
-                else:
-                    plan.append(("seg", len(segments)))
-                    segments.append(seg_text)
-            plans.append(plan)
+        with span("td.specials"):  # the split is lazy: consume it inside
+            for text in texts:
+                plan: list[tuple[str, int]] = []
+                for seg_text, special_id in self._split_specials(
+                        text, allowed_special):
+                    if special_id is not None:
+                        plan.append(("sp", special_id))
+                    else:
+                        plan.append(("seg", len(segments)))
+                        segments.append(seg_text)
+                plans.append(plan)
         encoded = self._encode_segments(segments)
-        out = []
-        for plan in plans:
-            ids: list[int] = []
-            for kind, payload in plan:
-                if kind == "sp":
-                    ids.append(payload)
-                else:
-                    ids.extend(encoded[payload])
-            out.append(ids)
+        with span("td.lists"):
+            out = []
+            for plan in plans:
+                ids: list[int] = []
+                for kind, payload in plan:
+                    if kind == "sp":
+                        ids.append(payload)
+                    else:
+                        ids.extend(encoded[payload])
+                out.append(ids)
         return out
 
     def _split_specials(

@@ -7,7 +7,10 @@
 * ``stage_device_us(events, stages)``: the device time each
   ``torch.profiler.record_function`` range launched, and
   ``kernel_counts(events, names)`` the trace's kernel events by name.
-* ``Timer``: nestable wall-clock section timer with a report.
+* ``span(name)``: a ``torch.profiler.record_function`` range named
+  ``name`` while a trace records, and nothing otherwise; the engine and
+  the wrapper mark their host work with ``td.*`` spans, and a
+  ``gc.callbacks`` hook marks each collection ``td.gc``.
 * ``RateMeter``: bytes/tokens throughput accounting; its JSON schema is
   the JAX package's (``tokendagger_tpu/utils/profiling.py``).
 """
@@ -16,14 +19,14 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import gc
 import json
 import re
-import time
-from collections import defaultdict
 from pathlib import Path
 from typing import Iterator
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -39,6 +42,58 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=acts,
                                 on_trace_ready=handler) as prof:
         yield prof
+
+
+class span:
+    """``with span("td.window"): ...``: a ``record_function`` range named
+    ``name`` while a ``torch.profiler`` trace records, so that the range
+    lies on the clock of the trace's kernels and copies; otherwise it
+    only reads the profiler's module flag (a ``record_function`` costs
+    ~14 µs even with no profiler running). A span marks a call or a
+    stage, never a piece, an id or a loop iteration: those are counted."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> "span":
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        """Close the range if ``__enter__`` opened one (once; else
+        nothing)."""
+        if self._range is not None:
+            rng, self._range = self._range, None
+            rng.__exit__(*exc)
+
+
+class _GcSpan:
+    """A ``gc.callbacks`` hook: a ``td.gc`` span around each collection
+    while a trace records, so that a pause is not charged to the span that
+    happened to be open. A collection starts and stops on one thread and
+    never nests."""
+
+    __slots__ = ("_span",)
+
+    def __init__(self) -> None:
+        self._span = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            if _autograd_profiler._is_profiler_enabled:
+                self._span = span("td.gc").__enter__()
+        elif self._span is not None:
+            sp, self._span = self._span, None
+            sp.__exit__(None, None, None)
+
+
+if not any(isinstance(cb, _GcSpan) for cb in gc.callbacks):
+    gc.callbacks.append(_GcSpan())
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -132,33 +187,6 @@ def kernel_counts(events: list[dict], names, stages=None) -> dict[str, int]:
             if pat.search(e.get("name", "")):
                 out[n] += 1
     return out
-
-
-class Timer:
-    """Nestable section timer: ``with timer("scan"): ...``; ``report()``."""
-
-    def __init__(self) -> None:
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def __call__(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(
-                f"{name:<24} total {total * 1e3:9.1f} ms  "
-                f"n={n:<6} avg {total / n * 1e6:9.1f} µs"
-            )
-        return "\n".join(lines)
 
 
 class RateMeter:

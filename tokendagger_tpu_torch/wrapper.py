@@ -51,6 +51,7 @@ from . import native as _native
 from .engine import DeviceEngine
 from .hostengine import HostEngine, byte_pair_merge
 from .tables import build_decode_tables, build_pair_table, byte_rank
+from .utils.profiling import span
 from .vocab import classify_pattern, vocab_list_to_ranks
 
 _BACKENDS = ("device", "host", "auto")
@@ -258,9 +259,12 @@ class Tokenizer:
         return True
 
     @staticmethod
-    def _nbytes(text: str) -> int:
-        """UTF-8 byte length (the unit of the thresholds above)."""
-        return len(text) if text.isascii() else len(text.encode("utf-8"))
+    def _nbytes(texts: Sequence[str]) -> int:
+        """Summed UTF-8 byte length of ``texts`` (the unit of the
+        thresholds above)."""
+        with span("td.utf8"):
+            return sum(len(t) if t.isascii() else len(t.encode("utf-8"))
+                       for t in texts)
 
     @staticmethod
     def _effective_threads(num_threads: int) -> int:
@@ -432,12 +436,14 @@ class Tokenizer:
     # Encoding
     # ------------------------------------------------------------------
     def encode_ordinary(self, text: str) -> list[int]:
-        try:
-            if self._use_device(self._nbytes(text)):
-                return self._get_device().encode_ordinary_batch([text])[0]
-            return self._host_encode_ordinary(text)
-        except Exception as e:  # noqa: BLE001
-            raise TokenDaggerError(f"Encoding failed: {e}") from e
+        with span("td.encode_ordinary"):
+            try:
+                if self._use_device(self._nbytes((text,))):
+                    return self._get_device().encode_ordinary_batch(
+                        [text])[0]
+                return self._host_encode_ordinary(text)
+            except Exception as e:  # noqa: BLE001
+                raise TokenDaggerError(f"Encoding failed: {e}") from e
 
     def encode(
         self,
@@ -446,17 +452,19 @@ class Tokenizer:
         allowed_special: Literal["all"] | AbstractSet[str] = set(),
         disallowed_special: Literal["all"] | Collection[str] = "all",
     ) -> list[int]:
-        allowed, disallowed = self._resolve_special(allowed_special,
-                                                    disallowed_special)
-        self._check_disallowed(text, disallowed)
-        try:
-            if self._use_device(self._nbytes(text)):
-                return self._get_device().encode_batch([text], allowed)[0]
-            return self._host_encode(text, allowed)
-        except ValueError:
-            raise
-        except Exception as e:  # noqa: BLE001
-            raise TokenDaggerError(f"Encoding failed: {e}") from e
+        with span("td.encode"):
+            allowed, disallowed = self._resolve_special(allowed_special,
+                                                        disallowed_special)
+            self._check_disallowed((text,), disallowed)
+            try:
+                if self._use_device(self._nbytes((text,))):
+                    return self._get_device().encode_batch([text],
+                                                           allowed)[0]
+                return self._host_encode(text, allowed)
+            except ValueError:
+                raise
+            except Exception as e:  # noqa: BLE001
+                raise TokenDaggerError(f"Encoding failed: {e}") from e
 
     def encode_with_special_tokens(self, text: str) -> list[int]:
         try:
@@ -478,49 +486,49 @@ class Tokenizer:
         segments through one engine; on the host ``num_threads`` workers
         (capped at the core count, :meth:`_effective_threads`) run the
         native engine's GIL-free encode."""
-        num_threads = self._effective_threads(num_threads)
-        allowed, disallowed = self._resolve_special(allowed_special,
-                                                    disallowed_special)
-        for t in text:
-            self._check_disallowed(t, disallowed)
-        if self._use_device(sum(self._nbytes(t) for t in text)):
-            return self._get_device().encode_batch(list(text), allowed)
-        native = self._get_native()
-        if native is not None and not allowed and native._py is not None:
-            datas = [t.encode("utf-8") for t in text]
-            # fewer huge texts than cores: per-text parallelism cannot
-            # fill them, so each goes through the intra-text split
-            if len(datas) < (os.cpu_count() or 4) and any(
-                    len(d) >= self._SPLIT_MIN_BYTES for d in datas):
-                out: list[list[int]] | None = []
-                for d in datas:
-                    lst = (self._encode_split_parallel(native, d)
-                           if len(d) >= self._SPLIT_MIN_BYTES else None)
-                    if lst is None:
-                        lst = native.encode_list(d)
-                    if lst is None:
-                        out = None
-                        break
-                    out.append(lst)
-                if out is not None:
-                    return out
-            # one extension call: the GIL-free OpenMP encode of every text
-            # and one pass that builds the lists
-            lists = native.encode_batch_lists(datas, num_threads)
-            if lists is not None:
-                return lists
+        with span("td.encode_batch"):
+            num_threads = self._effective_threads(num_threads)
+            allowed, disallowed = self._resolve_special(allowed_special,
+                                                        disallowed_special)
+            self._check_disallowed(text, disallowed)
+            if self._use_device(self._nbytes(text)):
+                return self._get_device().encode_batch(list(text), allowed)
+            native = self._get_native()
+            if native is not None and not allowed and native._py is not None:
+                datas = [t.encode("utf-8") for t in text]
+                # fewer huge texts than cores: per-text parallelism cannot
+                # fill them, so each goes through the intra-text split
+                if len(datas) < (os.cpu_count() or 4) and any(
+                        len(d) >= self._SPLIT_MIN_BYTES for d in datas):
+                    out: list[list[int]] | None = []
+                    for d in datas:
+                        lst = (self._encode_split_parallel(native, d)
+                               if len(d) >= self._SPLIT_MIN_BYTES else None)
+                        if lst is None:
+                            lst = native.encode_list(d)
+                        if lst is None:
+                            out = None
+                            break
+                        out.append(lst)
+                    if out is not None:
+                        return out
+                # one extension call: the GIL-free OpenMP encode of every text
+                # and one pass that builds the lists
+                lists = native.encode_batch_lists(datas, num_threads)
+                if lists is not None:
+                    return lists
+                with ThreadPoolExecutor(num_threads) as e:
+                    lists = list(e.map(native.encode_list, datas))
+                if all(x is not None for x in lists):
+                    return lists
+            arrays = self._encode_batch_host_np(text, allowed, num_threads)
+            if arrays is not None:
+                return [a.tolist() for a in arrays]
+            encoder = functools.partial(self.encode,
+                                        allowed_special=allowed_special,
+                                        disallowed_special=disallowed_special)
             with ThreadPoolExecutor(num_threads) as e:
-                lists = list(e.map(native.encode_list, datas))
-            if all(x is not None for x in lists):
-                return lists
-        arrays = self._encode_batch_host_np(text, allowed, num_threads)
-        if arrays is not None:
-            return [a.tolist() for a in arrays]
-        encoder = functools.partial(self.encode,
-                                    allowed_special=allowed_special,
-                                    disallowed_special=disallowed_special)
-        with ThreadPoolExecutor(num_threads) as e:
-            return list(e.map(encoder, text))
+                return list(e.map(encoder, text))
 
     def _encode_batch_host_np(
         self, text: Sequence[str], allowed: AbstractSet[str], num_threads: int
@@ -576,20 +584,20 @@ class Tokenizer:
     ) -> list[np.ndarray]:
         """Batch encode returning numpy int arrays: int64 from the device
         and the Python engine, int32 from the native engine."""
-        num_threads = self._effective_threads(num_threads)
-        allowed, disallowed = self._resolve_special(allowed_special,
-                                                    disallowed_special)
-        for t in text:
-            self._check_disallowed(t, disallowed)
-        if self._use_device(sum(self._nbytes(t) for t in text)):
-            return [np.asarray(ids, dtype=np.int64)
-                    for ids in self._get_device().encode_batch(list(text),
-                                                               allowed)]
-        arrays = self._encode_batch_host_np(text, allowed, num_threads)
-        if arrays is not None:
-            return arrays
-        return [np.asarray(self._host_encode(t, allowed), dtype=np.int64)
-                for t in text]
+        with span("td.encode_batch"):
+            num_threads = self._effective_threads(num_threads)
+            allowed, disallowed = self._resolve_special(allowed_special,
+                                                        disallowed_special)
+            self._check_disallowed(text, disallowed)
+            if self._use_device(self._nbytes(text)):
+                return [np.asarray(ids, dtype=np.int64)
+                        for ids in self._get_device().encode_batch(list(text),
+                                                                   allowed)]
+            arrays = self._encode_batch_host_np(text, allowed, num_threads)
+            if arrays is not None:
+                return arrays
+            return [np.asarray(self._host_encode(t, allowed), dtype=np.int64)
+                    for t in text]
 
     def encode_ordinary_batch(
         self, text: Sequence[str], *, num_threads: int = 8
@@ -648,7 +656,7 @@ class Tokenizer:
         case."""
         allowed, disallowed = self._resolve_special(allowed_special,
                                                     disallowed_special)
-        self._check_disallowed(text, disallowed)
+        self._check_disallowed((text,), disallowed)
         tokens, lptl = self._host.encode(text, allowed)
         stb, dec = self._get_unstable_aux()
         ranks = self._mergeable_ranks
@@ -953,10 +961,11 @@ class Tokenizer:
                 disallowed = self._all_specials_frozen
         return allowed, disallowed
 
-    def _check_disallowed(self, text: str, disallowed) -> None:
-        """Disallowed-special check (a substring scan), with an exact
-        bigram prefilter: a token can only occur if its leading bigram
-        occurs, so one scan per distinct bigram replaces one per token."""
+    def _check_disallowed(self, texts: Sequence[str], disallowed) -> None:
+        """Disallowed-special check of each of ``texts`` (a substring
+        scan), with an exact bigram prefilter: a token can only occur if
+        its leading bigram occurs, so one scan per distinct bigram replaces
+        one per token."""
         if not disallowed:
             return
         if disallowed is self._all_specials_frozen:
@@ -970,24 +979,26 @@ class Tokenizer:
             groups = {}
             for token in disallowed:
                 groups.setdefault(token[:2], []).append(token)
-        for bigram, tokens in groups.items():
-            if bigram in text:
-                for token in tokens:
-                    if token in text:
-                        # tiktoken's exact message
-                        raise ValueError(
-                            f"Encountered text corresponding to disallowed"
-                            f" special token {token!r}.\n"
-                            f"If you want this text to be encoded as a"
-                            f" special token, pass it to `allowed_special`,"
-                            f" e.g. `allowed_special={{{token!r}, ...}}`.\n"
-                            f"If you want this text to be encoded as normal"
-                            f" text, disable the check for this token by"
-                            f" passing `disallowed_special=(enc."
-                            f"special_tokens_set - {{{token!r}}})`.\n"
-                            f"To disable this check for all special tokens,"
-                            f" pass `disallowed_special=()`.\n"
-                        )
+        with span("td.specials"):
+            token = next((token for text in texts
+                          for bigram, tokens in groups.items()
+                          if bigram in text
+                          for token in tokens if token in text), None)
+        if token is not None:
+            # tiktoken's exact message
+            raise ValueError(
+                f"Encountered text corresponding to disallowed"
+                f" special token {token!r}.\n"
+                f"If you want this text to be encoded as a"
+                f" special token, pass it to `allowed_special`,"
+                f" e.g. `allowed_special={{{token!r}, ...}}`.\n"
+                f"If you want this text to be encoded as normal"
+                f" text, disable the check for this token by"
+                f" passing `disallowed_special=(enc."
+                f"special_tokens_set - {{{token!r}}})`.\n"
+                f"To disable this check for all special tokens,"
+                f" pass `disallowed_special=()`.\n"
+            )
 
 
 # ----------------------------------------------------------------------
