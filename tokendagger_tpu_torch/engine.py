@@ -56,11 +56,15 @@ range a stage and ``td.window.read``; ``td.drain`` with ``td.copyback`` and
 A window is cut at a *safe* offset (``_safe_cut_threshold``): pieces that
 end before the start of the character-class run touching the window's end
 (minus lookahead slack) cannot change with the bytes after it; the rest is
-scanned again in the next window. Misses splice exactly on the host (a
-whole-piece dict lookup, then ``byte_pair_merge``). Two exact host routes
-remain, both counted in ``EngineStats``: a window whose pieces overflow
-the slot capacity, and a class run longer than the largest window, take
-``_host_advance``. The ids equal ``HostEngine.encode_ordinary``.
+scanned again in the next window. Misses splice exactly on the host, a
+window's or a grid row's in one native call (``native.NativeSplicer``:
+the whole-piece hash, the thread's memo, then the exact merge; from
+1,024 misses on, on up to 8 threads), or without a C++ toolchain in
+Python (a whole-piece dict lookup, then ``byte_pair_merge``). Two exact
+host routes remain, both counted in ``EngineStats``: a window whose
+pieces overflow the slot capacity, and a class run longer than the
+largest window, take ``_host_advance``. The ids equal
+``HostEngine.encode_ordinary``.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ from typing import AbstractSet, Iterator
 import numpy as np
 import torch
 
+from . import native
 from .convert import (
     EngineTables, MergeTables, engine_tables_from_ranks,
     merge_tables_from_ranks,
@@ -121,9 +126,11 @@ class EngineStats:
     grown_windows: int = 0         # windows retried larger (no safe cut)
     host_advance_windows: int = 0  # overflow / over-long runs, host-encoded
     spliced_pieces: int = 0        # device misses spliced on the host
-    # of those, whole tokens (the rest took byte_pair_merge): pieces over
-    # the probe's 16-byte keys, and tokens its table dropped
+    # of those, whole tokens (the rest were merged): pieces over the
+    # probe's 16-byte keys, and tokens its table dropped
     spliced_whole: int = 0
+    # of those, spliced by the native route (td_splice), the rest in Python
+    spliced_native: int = 0
     grid_rows: int = 0             # short segments resolved in grids
     # (rows, width) grids run, by width
     grids_by_width: dict[int, int] = field(default_factory=dict)
@@ -196,6 +203,13 @@ class DeviceEngine:
             tables = engine_tables_from_ranks(
                 self.ranks, special_tokens, device=self.device)
         self.tables = tables
+        self._splicer = None  # the native splice's table: stream path only
+        if self.stream:
+            try:
+                self._splicer = native.NativeSplicer(self.ranks,
+                                                     self._byte_rank)
+            except RuntimeError:  # no toolchain, or a vocabulary it refuses
+                pass
         cpu = self.device.type == "cpu"
         self._window = CPU_WINDOW if cpu else CARD_WINDOW
         self._max_window = CPU_WINDOW if cpu else MAX_WINDOW
@@ -409,7 +423,18 @@ class DeviceEngine:
                          n_os: int) -> np.ndarray:
         """Replace SENTINEL slots with the exact encoding of each missed
         piece (both are in piece order), and count the pieces in
-        ``stats``."""
+        ``stats``. One native call (``td_splice``) where the engine has
+        its table; else, or where that call meets a byte without a rank,
+        the Python loop below. Both resolve a piece alike."""
+        splicer = self._splicer
+        if splicer is not None:
+            got = splicer.splice(ids, window, os_s, os_l, n_os, SENTINEL)
+            if got is not None:
+                out, whole = got
+                self._tally(spliced_pieces=n_os, spliced_whole=whole,
+                            spliced_native=n_os)
+                return out
+            self._splicer = None
         sent_pos = np.nonzero(ids == SENTINEL)[0]
         if len(sent_pos) != n_os:
             raise RuntimeError(f"{len(sent_pos)} SENTINEL slots for "

@@ -101,6 +101,12 @@ def get_lib() -> ctypes.CDLL | None:
         lib.td_set_specials.argtypes = [p, p, p, p, p, i64]
         lib.td_find_specials.restype = i64
         lib.td_find_specials.argtypes = [p, p, i64, p, p, i64]
+        lib.td_splice.restype = i64
+        # engine, data, n, ids (int64*), n_ids, miss starts and lengths
+        # (int32*), n_ms, sentinel, out (int64*), cap, n_whole (int64*),
+        # nthreads
+        lib.td_splice.argtypes = [p, p, i64, p, i64, p, p, i64, i64, p, i64,
+                                  p, i]
         lib.td_encode_batch.restype = i64
         lib.td_encode_batch.argtypes = [p, p, p, i64, p, p, i]
         lib.td_decode.restype = i64
@@ -163,6 +169,27 @@ def decode_list(tokens, offsets, lengths, blob, nthreads: int = 0):
     )
 
 
+def _install_vocab(lib, h, ranks: dict[bytes, int]):
+    """Install ``ranks`` as engine ``h``'s whole-piece vocab hash (the fast
+    path for a piece that is one token, also the merge's span-rank
+    table); returns the (blob, offsets, lengths, ranks) arrays the engine
+    borrows, which the caller keeps alive. The packed slot layout caps
+    token length at 255 bytes and blob offsets at 24 bits: beyond that
+    the engine cannot be exact, so this raises RuntimeError (the caller
+    keeps the Python engine)."""
+    keys = list(ranks.keys())
+    if any(len(k) > 255 for k in keys):
+        raise RuntimeError("vocab has tokens > 255 bytes")
+    if sum(len(k) for k in keys) > (1 << 24):
+        raise RuntimeError("vocab blob exceeds 16 MB")
+    blob, offs, lens = _blob_table(keys)
+    vranks = np.fromiter((ranks[k] for k in keys), dtype=np.int32,
+                         count=len(keys))
+    lib.td_set_vocab(h, blob.ctypes.data, offs.ctypes.data,
+                     lens.ctypes.data, vranks.ctypes.data, len(keys))
+    return blob, offs, lens, vranks
+
+
 def _blob_table(keys: list[bytes]):
     """(blob uint8, offsets int64, lengths int32) of byte strings."""
     blob = np.frombuffer(b"".join(keys), dtype=np.uint8)
@@ -217,29 +244,8 @@ class NativeEngine:
         if not self._h:
             raise RuntimeError("td_create failed")
         if ranks:
-            # whole-piece vocab hash (the fast path for a piece that is one
-            # token, also the merge's span-rank table). The packed slot
-            # layout caps token length at 255 bytes and blob offsets at 24
-            # bits: beyond that the engine cannot be exact, so refuse
-            # (the caller keeps the Python engine).
-            keys = list(ranks.keys())
-            if any(len(k) > 255 for k in keys):
-                raise RuntimeError("vocab has tokens > 255 bytes")
-            if sum(len(k) for k in keys) > (1 << 24):
-                raise RuntimeError("vocab blob exceeds 16 MB")
-            self._vocab_blob, self._vocab_offs, self._vocab_lens = (
-                _blob_table(keys))
-            self._vocab_ranks = np.fromiter(
-                (ranks[k] for k in keys), dtype=np.int32, count=len(keys)
-            )
-            lib.td_set_vocab(
-                self._h,
-                self._vocab_blob.ctypes.data,
-                self._vocab_offs.ctypes.data,
-                self._vocab_lens.ctypes.data,
-                self._vocab_ranks.ctypes.data,
-                len(keys),
-            )
+            (self._vocab_blob, self._vocab_offs, self._vocab_lens,
+             self._vocab_ranks) = _install_vocab(lib, self._h, ranks)
 
         # optional CPython-extension binding: GIL-free encode that builds
         # the result list directly (no numpy -> tolist pass)
@@ -432,6 +438,62 @@ class NativeEngine:
         return [
             out[offs[i] : offs[i] + counts[i]] for i in range(n_texts)
         ]
+
+
+class NativeSplicer:
+    """The native splice of a device window's missed pieces (``td_splice``)
+    over a vocab-only engine: the whole-piece hash and the byte-pair LUT,
+    which are all its merge reads; no scanner tables and no pair table.
+    Raises RuntimeError without a toolchain or for a vocabulary the
+    engine cannot hold (``_install_vocab``). Thread-safe, as
+    ``NativeEngine`` is. A window of at least 1,024 misses resolves them
+    on ``threads`` threads."""
+
+    def __init__(self, ranks: dict[bytes, int], byte_rank: np.ndarray):
+        self.threads = min(8, os.cpu_count() or 1)
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._byte_rank = np.ascontiguousarray(byte_rank, dtype=np.int32)
+        self._h = lib.td_create(None, None, None, 0, 0,
+                                self._byte_rank.ctypes.data, 0)
+        if not self._h:
+            raise RuntimeError("td_create failed")
+        self._vocab = _install_vocab(lib, self._h, ranks)
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.td_destroy(h)
+            self._h = None
+
+    def splice(self, ids: np.ndarray, data: bytes, ms_s: np.ndarray,
+               ms_l: np.ndarray, n_ms: int, sentinel: int):
+        """(ids with each ``sentinel`` replaced by the ids of its miss,
+        the misses found whole in the vocab): ``ids`` int64 in piece
+        order, miss j the piece ``data[ms_s[j] : ms_s[j] + ms_l[j]]``.
+        None where a byte has no rank (the caller splices in Python);
+        RuntimeError where the sentinels are not ``n_ms``."""
+        ids = np.ascontiguousarray(ids, dtype=np.int64)
+        ms_s = np.ascontiguousarray(ms_s[:n_ms], dtype=np.int32)
+        ms_l = np.ascontiguousarray(ms_l[:n_ms], dtype=np.int32)
+        cap = len(ids) - n_ms + int(ms_l.sum(dtype=np.int64))
+        out = np.empty(max(cap, 0), dtype=np.int64)
+        whole = ctypes.c_int64(0)
+        cnt = self._lib.td_splice(
+            self._h, data, len(data), ids.ctypes.data, len(ids),
+            ms_s.ctypes.data, ms_l.ctypes.data, n_ms, sentinel,
+            out.ctypes.data, len(out), ctypes.byref(whole), self.threads)
+        if cnt == -2:
+            return None
+        if cnt == -3:
+            raise RuntimeError(
+                f"{int(np.count_nonzero(ids == sentinel))} SENTINEL slots "
+                f"for {n_ms} missed pieces")
+        if cnt < 0:
+            raise RuntimeError(f"td_splice error {cnt}")
+        return out[:cnt], whole.value
 
 
 def _offsets(datas: list[bytes]) -> np.ndarray:
