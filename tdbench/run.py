@@ -20,10 +20,13 @@ checkout, and prints one JSON line (the last line of standard output).
    unit and of a share (``check_share``) of the others, drawn from the
    seed. The objects made in set-up are frozen out of the garbage
    collector's passes first (``gc.freeze``).
-3. With ``--trace 1``, a traced slice: one more untraced call, one traced
-   call, then the mix's ``trace_units`` calls inside the range
-   ``tdbench.slice`` of a ``torch.profiler`` trace written under the
-   temporary directory (``TMPDIR``).
+3. With ``--trace 1``, or where one of the cell's end-to-end metrics is
+   read from the device trace (``source`` ``device_trace``), a traced
+   slice: one more untraced call, one traced call, then the mix's
+   ``trace_units`` calls inside the range ``tdbench.slice`` of a
+   ``torch.profiler`` trace written under the temporary directory
+   (``TMPDIR``). Only a ``--trace 1`` line carries ``busy_s``,
+   ``window_s`` and ``breakdown``.
 4. The peak device memory is read and the tokenizer freed; then every
    kept call's ids are compared with the plain reference
    (``reference/encode.py``) on the same input: a call is wrong unless
@@ -221,11 +224,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         stats1 = engine_stats(tok)
         run.stats = {k: stats1[k] - stats0.get(k, 0) for k in stats1}
 
-    if trace:
+    if trace or any(m["source"] == "device_trace"
+                    for m in cell_metrics(manifest, cell, False)):
         run.slice = traced_slice(api, call, units, unit_bytes,
                                  int(mix["trace_units"]), dev)
     info = card_info(dev)
-    if run.slice is not None:
+    if trace and run.slice is not None:
         info["busy_s"] = run.slice.busy_us() * 1e-6
         info["window_s"] = run.slice.window_us * 1e-6
     del tok, call
@@ -249,7 +253,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     result = {"correct": correct, "attempted": run.calls,
               "failed": len(failures), "metrics": metrics, "device": info}
-    if run.slice is not None:
+    if trace and run.slice is not None:
         result["breakdown"] = {"device_ops": run.slice.device_ops(),
                                "idle_gaps": run.slice.idle_gaps()}
     result["check"] = {name: {"value": v, where.replace(" ", "_"): lim}

@@ -49,7 +49,8 @@ def test_names_and_units_use_the_allowed_characters():
 
 def test_end_to_end_metrics():
     e2e = {m["name"]: m for m in MANIFEST["end_to_end"]}
-    assert set(e2e) == {"setup_s", "doc_mbps", "request_p95_ms"}
+    assert set(e2e) == {"setup_s", "doc_mbps", "card_mbps",
+                        "request_p95_ms"}
     assert "workloads" not in e2e["setup_s"]
     assert e2e["setup_s"]["bound"] == 0.25
     for m in e2e.values():

@@ -62,6 +62,9 @@ def test_no_slice_range_reads_nothing():
 @pytest.mark.parametrize("name,want", [
     ("setup_s", 12.5),
     ("doc_mbps", 4.0),
+    ("doc_mbps.code", 4.0),
+    # 3 MB over the 250 us the card was busy
+    ("card_mbps", 12000.0),
     ("request_p95_ms", 95.05),
     ("glue_share.doc", 50.0),
     ("splice_share.doc", 15.0),
@@ -78,7 +81,7 @@ def test_readers(name, want):
 
 
 @pytest.mark.parametrize("name", ["idle_share.doc", "kernel_roofline.doc",
-                                  "starts_roofline.doc"])
+                                  "starts_roofline.doc", "card_mbps"])
 def test_trace_readers_without_a_trace_read_nothing(name):
     r = run.Run(window_s=1.0, bytes=1)
     assert reader(name)(r) is None

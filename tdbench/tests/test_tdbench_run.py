@@ -93,6 +93,20 @@ def test_sound_run_is_correct(cell):
     assert list(res)[-1] == "check"
 
 
+@pytest.mark.parametrize("cell,sliced", [("o200k.docs", False),
+                                         ("cl100k.code", True)])
+def test_untraced_run_takes_a_slice_for_a_device_trace_metric(
+        cell, sliced, monkeypatch):
+    """An untraced run traces its slice only where one of the cell's
+    end-to-end metrics is read from the device trace (``card_mbps``), and
+    its line never carries the trace's own keys."""
+    calls = []
+    monkeypatch.setattr(run, "traced_slice", lambda *a: calls.append(a))
+    res = cpu_run(cell)
+    assert bool(calls) == sliced
+    assert "busy_s" not in res["device"] and "breakdown" not in res
+
+
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("control", sorted(CONTROLS))
 def test_control_is_not_correct(cell, control):
