@@ -37,8 +37,10 @@
    versions at the engine's shapes: the UTF-8 decode (K9) on 4 MB and
    16 MB windows of seeded multi-script text and invalid UTF-8, and K1's
    codepoint entry on 4 MB and 16 MB multi-script windows (with an empty
-   window and a ragged length inside the first segment) for all four
-   profiles.
+   window and a ragged length inside the first segment) for all five
+   profiles; under kimi also on Han-heavy windows at the engine's 1 MB
+   and 4 MB shapes (with an empty window and a ragged length), timed
+   beside llama4 on the same window.
    After step 5's run, every kernel of the engine's window pipeline (K9,
    K4 in the decode's compaction, K1, K2+K3, the probe, K4 in finalize)
    is held
@@ -79,7 +81,7 @@
    trace that lost a kernel event fails the run (here and in every
    run_resident call below). Then
    holds K5+K6 (compact_record), K7+K8 (expand_route) and K1's class-word
-   entry (all four profiles) against their plain versions on the inputs
+   entry (all five profiles) against their plain versions on the inputs
    the auto run gave them at each of the path's shapes (the decode, the
    hot-codepoint classes, the hot-piece probe), and on the same shapes
    with an empty row, an all-kept (overflowing) row and a skewed row
@@ -91,12 +93,13 @@
    8 x 1 MB ("formulations": impl sort and scatter x starts_impl jnp and
    bits, compact_impl sort): ids equal to the host engine's, no window
    overflowed, every kernel of each run launched. K9, K1's codepoint
-   entry (all four profiles), K2+K3, K4, the merge and the probe are then
+   entry (all five profiles), K2+K3, K4, the merge and the probe are then
    held against their plain versions on the inputs every resident, single
    and formulation run gave them (each distinct input once), with edge
    rows, and timed once at each shape. The char form and match_lengths
    + chain_starts are held against K1's codepoint entry at (8, 1 M) for
-   the four profiles, and the sort formulations are timed beside the
+   the four profiles it serves (it refuses kimi), and the sort
+   formulations are timed beside the
    kernels of the same contract on one 1 MB window. Every kernel's times
    at these shapes join its row of the kernels line (``ms_by_shape``
    and kin, K2+K3's ``library_ms_by_shape`` and
@@ -106,7 +109,8 @@
    grid shapes (4096, 256), (1024, 1024) and (256, 4096), stage by stage,
    on seeded multi-script rows with an empty row, a row of exactly W
    chars, one piece and all whitespace: K9, K4 in the decode, K1's row
-   entry (all four profiles; it gets its own row of the kernels line),
+   entry (all five profiles, and kimi again on Han-heavy rows of the same
+   lengths; it gets its own row of the kernels line),
    K2+K3 on byte flags with p_cap = W, the probe on the stand-in's table,
    and K4 in finalize_host; times each at each shape.
 8. The device BPE merge (``ops/merge.merge_rows``, ``csrc/merge.cu``)
@@ -138,7 +142,7 @@
      "sort": ids equal to the host engine's, rows in every merge width,
      the oversize pieces spliced; prints rows per width, overflow windows
      and the host-clock stage times.
-   A pattern outside the four profiles cannot run on the card (it has no
+   A pattern outside the five profiles cannot run on the card (it has no
    ``regex`` module, which HostEngine needs for such a pattern): the CPU
    tests hold that case (tests/test_torch_engine.py, test_torch_wrapper.py).
 9. Drives the public API's other paths, each with the counts set to 0
@@ -158,7 +162,13 @@
      the rates of 1 thread and of 4 threads again, into fresh outputs;
    * "streaming": StreamingEncoder fed 4 MB of multi-script text with
      specials in seeded chunks of 1 B-64 KB; the ids must equal one
-     encode and the host engine's; prints the wall rate.
+     encode and the host engine's; prints the wall rate;
+   * "kimi": Kimi K2's pattern (the kimi profile) on a stand-in that
+     holds some Han-heavy text's pieces: 8 MB of Han-heavy text with
+     [EOS] every 256 KB and a 5 MB segment, then encode_batch over 400
+     short texts; ids equal to the host engine's, no ``regex`` split, K1
+     once a window and its row entry once a grid (counted over this
+     path's run), Han pieces spliced, no host route.
 10. The host backend and "auto" (the paths "host" and "auto"):
    * "host": Tokenizer(backend="host") must run the native C++ engine
      (built by g++ at first use; the run fails on the pure-Python
@@ -217,6 +227,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -226,6 +237,9 @@ INT_OPS_PER_S = 67e12       # H100 SXM 32-bit non-tensor rate (fp32 figure)
 WINDOW, BATCH = 1 << 20, 8
 ENGINE_WINDOW = 1 << 22     # the engine's card window (engine.CARD_WINDOW)
 MAX_WINDOW = 1 << 24        # its largest, grown window (engine.MAX_WINDOW)
+# K1's profiles (vocab.classify_pattern); kimi, Kimi K2's, also gets
+# Han-heavy windows and rows of its own
+PROFILES = ("llama4", "nocontract", "cl100k", "gpt2", "kimi")
 
 WORDS = (
     "the of and to in a is that for it as was with be by on not he this are "
@@ -337,6 +351,27 @@ def standin_vocab(n_ranks: int, seed: int,
         ranks.setdefault(bytes(rng.integers(32, 127, k).astype(np.uint8)),
                          len(ranks))
     return ranks
+
+
+@functools.lru_cache(maxsize=4)
+def han_heavy(seed: int) -> bytes:
+    """About 1.4 MB of seeded Han-heavy text, UTF-8: the kimi profile's
+    test text (tests/torch_port_util.han_text), Han runs of every kind of
+    Han char (letters, marks, numerals, radicals) beside the chars that
+    decide where a run starts and what runs into it."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_port_util import han_text
+
+    return han_text(np.random.default_rng(seed), 1 << 19).encode()
+
+
+def han_bytes(seed: int, n: int) -> bytes:
+    """n bytes of ``han_heavy(seed)``, repeated as needed (the last char
+    may be cut)."""
+    raw = han_heavy(seed)
+    return (raw * (n // len(raw) + 1))[:n]
 
 
 def edge_windows(seed: int, n: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
@@ -562,7 +597,7 @@ def check_kernels(seed: int, dev) -> list[dict]:
 
     # ---- K1: piece starts, every profile ----
     k1_err = 0
-    for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+    for prof in PROFILES:
         got = BP.piece_starts_bits(by, nb, profile=prof)
         want = BP.piece_starts_bits_plain(by, nb, profile=prof)
         err = max_abs_err([got], [want])
@@ -667,7 +702,7 @@ def check_kernels(seed: int, dev) -> list[dict]:
 def check_k1_groups(seed: int, dev) -> tuple[int, dict]:
     """K1's byte entry on more windows than the card holds its blocks
     (300 of 1024 bytes: groups of one block per window) against its plain
-    version, all four profiles; returns the largest error and the
+    version, every profile; returns the largest error and the
     timings at that shape."""
     from tokendagger_tpu_torch.ops import bitplane as BP
 
@@ -680,7 +715,7 @@ def check_k1_groups(seed: int, dev) -> tuple[int, dict]:
     nb[:3] = torch.tensor([0, N, 33])
     by, nb = by.to(dev), nb.to(dev)
     err = 0
-    for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+    for prof in PROFILES:
         err = max(err, max_abs_err(
             [BP.piece_starts_bits(by, nb, profile=prof)],
             [BP.piece_starts_bits_plain(by, nb, profile=prof)]))
@@ -691,7 +726,7 @@ def check_k1_groups(seed: int, dev) -> tuple[int, dict]:
                 B * N + B * N / 8 + 4 * B, passes * B * N / 32, plain_reps=3)
     t["blocks_per_window"] = spw
     print(f"K1 piece_starts {(B, N)} (more windows than resident blocks): "
-          f"max_abs_err {err} over four profiles; {spw} blocks per window; "
+          f"max_abs_err {err} over the profiles; {spw} blocks per window; "
           f"{show(t)}")
     if err or spw < 1:
         raise AssertionError(f"K1 at {(B, N)} differs from its plain version")
@@ -878,7 +913,7 @@ def check_engine_kernels(seed: int, dev) -> list[dict]:
         for n in (0, 12345):
             cps.append((cps[0][0], torch.tensor([n], dtype=torch.int32,
                                                 device=dev)))
-        for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+        for prof in PROFILES:
             err = 0
             for cp, m in cps:
                 got = BP.piece_starts_chars(cp, m, profile=prof,
@@ -901,12 +936,48 @@ def check_engine_kernels(seed: int, dev) -> list[dict]:
         print(f"K1 piece_starts_cp (one {label} window): "
               f"{show(timing[label])}; {passes} passes, "
               f"{timing[label]['blocks_per_window']} blocks per window")
+
+    # ---- K1 under kimi: Han-heavy windows at the engine's 1 MB and 4 MB
+    # shapes, also with an empty window and a ragged length; timed beside
+    # llama4 on the same window ----
+    more = {"engine 16 MB (1, 16777216)": timing["16 MB"]}
+    for label, N in (("1 MB", 1 << 20), ("4 MB", ENGINE_WINDOW)):
+        w = torch.from_numpy(np.frombuffer(han_bytes(seed, N), np.uint8)
+                             .reshape(1, N).copy()).to(dev)
+        nb = torch.tensor([N], dtype=torch.int32, device=dev)
+        cp, m = PT.utf8_decode(w, nb)[::3]
+        err = 0
+        for mm in (m, torch.zeros_like(m), torch.full_like(m, 12345)):
+            got = BP.piece_starts_chars(cp, mm, profile="kimi",
+                                        packed_out=True)
+            want = BP.piece_starts_chars_plain(cp, mm, profile="kimi")
+            err = max(err, max_abs_err([got], [want]))
+        if err:
+            raise AssertionError(f"K1 codepoint entry kimi differs on the "
+                                 f"Han-heavy {label} window")
+        cp_err = max(cp_err, err)
+        passes = BP.starts_passes("kimi", N)
+        t = timings(
+            lambda: BP.piece_starts_chars(cp, m, profile="kimi",
+                                          packed_out=True),
+            lambda: BP.piece_starts_chars_plain(cp, m, profile="kimi"),
+            4 * N + N / 8 + 4, passes * N / 32, plain_reps=3)
+        t.update(passes=passes,
+                 blocks_per_window=k1_blocks("codepoints", 1, N))
+        llama = device_ms(lambda: BP.piece_starts_chars(cp, m,
+                                                        packed_out=True))
+        more[f"engine kimi Han {label} (1, {N})"] = t
+        more[f"engine llama4 Han {label} (1, {N})"] = dict(ms=llama)
+        print(f"K1 piece_starts_cp[kimi] Han-heavy {label} window "
+              f"({int(m)} chars): max_abs_err {err}; {show(t)}; {passes} "
+              f"passes; llama4 on the same window {llama:.4f} ms on the "
+              "device")
     rows.append(dict(
         name="piece_starts_cp", route="cuda",
         source="tokendagger_tpu_torch/csrc/piece_starts.cu",
         replaces="tokendagger_tpu/ops/bitplane.py:1152",
         max_abs_err=cp_err, **timing["4 MB"], library_ms=None,
-        **by_shape({"engine 16 MB (1, 16777216)": timing["16 MB"]})))
+        **by_shape(more)))
     return rows
 
 
@@ -1584,7 +1655,7 @@ def check_resident_kernels(inputs: dict, dev) -> list[dict]:
     short = m.clone()
     short[0] = 12345          # a ragged length inside the first segment
     short[1] = 0              # an empty window
-    for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+    for prof in PROFILES:
         err = 0
         for mm in (m, short):
             got = BP.piece_starts_words(words, mm, profile=prof)
@@ -1647,7 +1718,7 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
     (``runs``: label -> the run's ``recorded_inputs``), each distinct
     input once, and on edge rows at the same shapes, each edge alone so
     that a one-row batch takes them all: random bytes for K9; a ragged
-    and an empty window for K1 (all four profiles); an empty window for
+    and an empty window for K1 (every profile); an empty window for
     K2+K3; an all-kept and an empty row for K4; an empty and a full-width
     row for the merge; a dead row, a row of length -1 and a row of hits in
     full buckets for the probe. Times each kernel once at each shape.
@@ -1688,7 +1759,7 @@ def check_resident_shared(runs: dict, seed: int, dev) -> tuple[dict, dict]:
             # a ragged length inside the first segment; an empty window
             variants = (m, _one_row(m, 0, min(12345, C)), _one_row(m, -1, 0))
             by_prof = {}
-            for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+            for prof in PROFILES:
                 by_prof[prof] = max(max_abs_err(
                     [BP.piece_starts_chars(cp, mm, profile=prof,
                                            packed_out=True)],
@@ -1810,7 +1881,8 @@ def check_grid_kernels(seed: int, dev) -> tuple[dict, dict, dict]:
     three grid shapes, stage by stage as ``ops/batched.resolve_grid``
     runs them, on seeded multi-script rows with edge rows (empty, exactly
     W chars, one piece, all whitespace): K9, K4 in the decode, K1's row
-    entry (all four profiles), K2+K3 on byte flags with p_cap = W, the
+    entry (every profile, and kimi on Han-heavy rows of the same
+    lengths), K2+K3 on byte flags with p_cap = W, the
     probe on the stand-in's table (with its edge rows) and K4 in
     finalize_host. Returns K1's row-entry row of the kernels line, and
     each kernel's largest error and timings by shape."""
@@ -1847,7 +1919,7 @@ def check_grid_kernels(seed: int, dev) -> tuple[dict, dict, dict]:
             B * W + 8 * kept + 8 * B * W, B * W)
         cp, cob, _, m = PT.utf8_decode(by, nb)
         e1 = 0
-        for prof in ("llama4", "nocontract", "cl100k", "gpt2"):
+        for prof in PROFILES:
             n0 = BP.piece_starts_rows.launches
             got = BP.piece_starts_chars(cp, m, profile=prof, packed_out=True)
             if BP.piece_starts_rows.launches != n0 + 1:
@@ -1857,7 +1929,28 @@ def check_grid_kernels(seed: int, dev) -> tuple[dict, dict, dict]:
                 [got], [BP.piece_starts_chars_plain(cp, m, profile=prof)])
             print(f"K1 piece_starts_rows[{prof}] {at}: max_abs_err {err}")
             e1 = max(e1, err)
+        # kimi on Han-heavy rows of the same lengths (the empty row too)
+        han, pos, hrows = han_bytes(seed + W, B * W), 0, []
+        for k in nb.tolist():
+            hrows.append(han[pos:pos + k].decode("utf-8", "ignore").encode())
+            pos += k
+        hcp, _, _, hm = PT.utf8_decode(*stage_rows(hrows, W, dev))
+        n0 = BP.piece_starts_rows.launches
+        got = BP.piece_starts_chars(hcp, hm, profile="kimi", packed_out=True)
+        if BP.piece_starts_rows.launches != n0 + 1:
+            raise AssertionError(f"kimi rows at {(B, W)} did not take K1's "
+                                 "row entry")
+        err = max_abs_err(
+            [got], [BP.piece_starts_chars_plain(hcp, hm, profile="kimi")])
+        print(f"K1 piece_starts_rows[kimi] {at} Han-heavy rows: max_abs_err "
+              f"{err}")
+        e1 = max(e1, err)
         e["piece_starts_rows"] = e1
+        times["piece_starts_rows"][f"{at} kimi Han"] = timings(
+            lambda: BP.piece_starts_rows(hcp, hm, profile="kimi"),
+            lambda: BP.piece_starts_chars_plain(hcp, hm, profile="kimi"),
+            4 * B * W + B * W / 8 + 4 * B,
+            BP.starts_passes("kimi", W) * B * W / 32, plain_reps=3)
         passes[at] = BP.starts_passes("llama4", W)
         times["piece_starts_rows"][at] = timings(
             lambda: BP.piece_starts_rows(cp, m),
@@ -2185,6 +2278,94 @@ def run_streaming(seed: int, dev) -> dict:
     print(f"streaming ids equal one encode and the host engine "
           f"({len(ids)} ids)")
     return launches
+
+
+def run_kimi(seed: int, dev) -> dict:
+    """Kimi K2's pattern (the kimi profile) through Tokenizer(backend=
+    "device") on a 200,000-rank stand-in that holds the pieces of some
+    Han-heavy text: 8 MB of Han-heavy text, [EOS] between sub-documents
+    of 256 KB and a 5 MB segment after <|im_end|> (4 MB windows cut at
+    safe offsets), then encode_batch over 400 short Han-heavy texts
+    (grids). Every id must equal the host engine's (Kimi's own scanner:
+    ``HostEngine``, as the native engine's pair table cannot be built for
+    this stand-in); the engine must have no ``regex`` split; over this
+    path's own run K1 must launch once a window or batch of windows (its
+    codepoint or row entry), the sub-documents must share batches, and
+    its row entry must launch once a grid,
+    Han pieces must be spliced and no window may take the host route.
+    Returns the kernels' launches."""
+    from tokendagger_tpu_torch import KIMI_PATTERN, Tokenizer
+
+    n_ranks = 200_000
+    ranks = standin_vocab(n_ranks, seed, extra=han_heavy(seed + 60)[
+        : 1 << 18].decode("utf-8", "ignore"))
+    specials = {"[BOS]": n_ranks, "[EOS]": n_ranks + 1,
+                "<|im_end|>": n_ranks + 2}
+    kw = dict(pat_str=KIMI_PATTERN, mergeable_ranks=ranks,
+              special_tokens=specials)
+    tok = Tokenizer("kimi", backend="device", device=dev, **kw)
+    host = Tokenizer("kimi", backend="host", **kw)
+    eng = tok._get_device()
+    if not eng.stream or eng.host._re is not None:
+        raise AssertionError("kimi: the engine would split on the host")
+    raw = han_bytes(seed + 61, 8 << 20)
+    subdocs = [raw[j:j + (1 << 18)].decode("utf-8", "ignore")
+               for j in range(0, 3 << 20, 1 << 18)]
+    text = ("[EOS]".join(subdocs) + "<|im_end|>"
+            + raw[3 << 20:].decode("utf-8", "ignore"))
+    rng = np.random.default_rng(seed + 62)
+    short = [raw[a:a + k].decode("utf-8", "ignore") for a, k in zip(
+        rng.integers(0, 1 << 20, 400).tolist(),
+        rng.integers(1, 4000, 400).tolist())]
+    tok.encode("中文 warm-up 2024，", allowed_special="all")
+    counters = engine_counters()
+
+    def counts():
+        return {k: v for k, v in vars(eng.stats).items()
+                if isinstance(v, int)} | {"grids": eng.stats.grids}
+
+    s0 = counts()
+    ids, wall, launches = count_runs(
+        counters, lambda: tok.encode(text, allowed_special="all"))
+    s1 = counts()
+    batch, bwall, blaunch = count_runs(
+        counters, lambda: tok.encode_batch(short, allowed_special="all"))
+    s2 = counts()
+    win = {k: s1[k] - s0[k] for k in s0}
+    grid = {k: s2[k] - s1[k] for k in s0}
+    nbytes = len(text.encode())
+    print(f"kimi: {nbytes} B in {win['windows']} windows ({win['cut_windows']}"
+          f" cut), {wall:.4f} s = {nbytes / 1e6 / wall:.2f} MB/s wall; "
+          f"{win['spliced_pieces']} pieces spliced, {win['spliced_han']} of "
+          f"them Han; launches {json.dumps(launches)}; batch of {len(short)} "
+          f"texts: {grid['grids']} grids, {bwall:.4f} s, launches "
+          f"{json.dumps(blaunch)}")
+    k1 = launches["piece_starts_cp"] + launches["piece_starts_rows"]
+    runs = win["windows"] - win["batched_windows"] + win["window_batches"]
+    if k1 != runs or not launches["piece_starts_cp"]:
+        raise AssertionError(f"kimi: {k1} K1 launches for "
+                             f"{win['windows']} windows, "
+                             f"{win['batched_windows']} of them in "
+                             f"{win['window_batches']} batches")
+    if not win["window_batches"]:
+        raise AssertionError("kimi: no sub-documents shared a batch")
+    if blaunch["piece_starts_rows"] != grid["grids"] or not grid["grids"]:
+        raise AssertionError(f"kimi: {blaunch['piece_starts_rows']} K1 row "
+                             f"launches for {grid['grids']} grids")
+    if not win["cut_windows"] or not win["spliced_han"]:
+        raise AssertionError("kimi: no window was cut or no Han piece "
+                             "spliced")
+    if win["host_advance_windows"] or grid["host_advance_windows"]:
+        raise AssertionError("kimi: a window took the host route")
+    want = host.encode(text, allowed_special="all")
+    if ids != want:
+        raise AssertionError(f"kimi ids differ from the host engine's at id "
+                             f"{first_diff(ids, want)}")
+    if batch != host.encode_batch(short, allowed_special="all"):
+        raise AssertionError("kimi batch ids differ from the host engine's")
+    print(f"kimi: every id equals the host engine's ({len(ids)} "
+          f"ids; host binding {host.host_binding})")
+    return {k: launches[k] + blaunch[k] for k in launches}
 
 
 # ===========================================================================
@@ -3861,6 +4042,7 @@ def main() -> int:
                  batch=run_batch(args.seed, "cuda"),
                  corpus=run_corpus(args.seed, "cuda"),
                  streaming=run_streaming(args.seed, "cuda"),
+                 kimi=run_kimi(args.seed, "cuda"),
                  pieces=pieces, merge_windows=merge_windows,
                  host=run_host(args.seed, args.engine_mb),
                  auto=run_auto(args.seed, args.engine_mb, "cuda"))

@@ -165,6 +165,36 @@ def test_encode_streams_equals_jax_and_host(n):
         assert port.stats.grids == before
 
 
+@pytest.mark.parametrize("profile,pattern,kind", PROFILE_CASES,
+                         ids=[c[0] for c in PROFILE_CASES])
+def test_complete_segments_share_batched_windows(profile, pattern, kind):
+    """Segments that each fit one window run as (B, N) batches of windows,
+    the longest first, at most BATCH_WINDOWS a batch; one whose window
+    overflows its piece slots takes encode_stream (and there the exact
+    host route), one longer than a window is cut as before. The ids equal
+    the host engine's, and under llama4 the JAX engine's."""
+    from tokendagger_tpu_torch import engine as TE
+
+    port, jax_engine, host = _engines(pattern, kind)
+    rng = np.random.default_rng(11)
+    segs = [_cut(multiscript_text(rng, int(k)).encode(), int(k))
+            for k in rng.integers(4097, 40000, 10)]
+    segs += [b"1!" * 15000, b"", b"tail", _cut(
+        multiscript_text(rng, 90000).encode(), 90000)]
+    before = TE.EngineStats(**vars(port.stats))
+    got = port.encode_streams(segs)
+    for g, s in zip(got, segs):
+        assert g.tolist() == host.encode_ordinary(s.decode())
+    if profile == "llama4":
+        want = jax_engine.encode_streams(segs)
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    st = port.stats
+    # 10 + "1!"... + "tail" batched as 8 + 4; the overflow once more alone
+    assert st.batched_windows - before.batched_windows == 12
+    assert st.host_advance_windows > before.host_advance_windows
+    assert st.cut_windows > before.cut_windows
+
+
 def test_encode_batch_splits_specials_into_grids():
     """encode_batch over many short texts with specials: the spans between
     specials go through grids, and the ids equal the host engine's."""

@@ -1242,3 +1242,100 @@ def test_probe_on_a_second_card(dev, probe_table):
                              probe_table[1])
         assert got.device == d1
         assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# kimi (Kimi K2's pattern): K1's Han rules and the Tokenizer on the card
+# ---------------------------------------------------------------------------
+
+
+def _kimi_windows(seed, B, n, full=False):
+    """B windows of n codepoint slots of Han-heavy text (garbage past each
+    window's length): ragged lengths, an empty window, or all full."""
+    from torch_port_util import han_text
+
+    rng = np.random.default_rng(seed)
+    lengths = ([n] * B if full else
+               [min(k, n) for k in (n - 77, 0, n // 3 + 5, n, 33, n - 1,
+                                    1000, n // 2)][:B])
+    cp = rng.integers(0, 0x110000, (B, n)).astype(np.int32)
+    for b, k in enumerate(lengths):
+        cp[b, :k] = [ord(c) for c in han_text(rng, k)]
+    return cp, np.array(lengths, np.int32)
+
+
+@pytest.mark.parametrize("B,n", [(1, 1 << 16), (8, 1 << 16), (1, 1 << 22)])
+def test_k1_kimi_equals_plain(dev, B, n):
+    """K1 under kimi (han_prepass, then derive_o200k<true>): its codepoint
+    and class-word entries spread over many blocks equal the plain
+    version on Han-heavy windows, up to the engine's 4 MB window."""
+    cp, m = _kimi_windows(B + n, B, n, full=n > 1 << 16)
+    words = BP.char_class_words("kimi")[cp].astype(np.int32)
+    xs = torch.from_numpy(cp).to(dev)
+    ms = torch.from_numpy(m).to(dev)
+    want = BP.piece_starts_chars_plain(xs, ms, profile="kimi")
+    got = BP.piece_starts_chars(xs, ms, profile="kimi", packed_out=True)
+    ws = torch.from_numpy(words).to(dev)
+    got_w = BP.piece_starts_words(ws, ms, profile="kimi")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_w, want)
+    if n <= 1 << 16:  # the plain version on the card is the CPU's
+        assert torch.equal(want.cpu(), BP.piece_starts_chars_plain(
+            xs.cpu(), ms.cpu(), profile="kimi"))
+
+
+@pytest.mark.parametrize("B,W", GRID_SHAPES)
+def test_k1_rows_kimi_equals_plain(dev, B, W):
+    """K1's row entry under kimi equals its plain version on Han-heavy
+    rows (the grids' rows and the engine's 4 KB window)."""
+    cp, m = _kimi_windows(B * W, min(B, 8), W)
+    cp = np.tile(cp, (-(-B // len(cp)), 1))[:B]
+    m = np.tile(m, -(-B // len(m)))[:B]
+    xs, ms = torch.from_numpy(cp).to(dev), torch.from_numpy(m).to(dev)
+    before = BP.piece_starts_rows.launches
+    got = BP.piece_starts_chars(xs, ms, profile="kimi", packed_out=True)
+    assert BP.piece_starts_rows.launches == before + 1
+    want = BP.piece_starts_chars_plain(xs, ms, profile="kimi")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_kimi_tokenizer_card_equals_reference(dev):
+    """Tokenizer(pat_str=KIMI_PATTERN, backend="device") on the card: its
+    ids equal the benchmark's plain reference on 7 MB of Han-heavy text
+    with specials (its three sub-documents one batch of windows, then 4 MB
+    windows cut at safe offsets) and on a batch of short texts (grids);
+    every boundary comes from K1, none from ``regex``."""
+    import sys
+
+    from tokendagger_tpu_torch import KIMI_PATTERN, Tokenizer
+    from torch_port_util import han_text
+
+    root = __import__("pathlib").Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from tdbench.reference.encode import Reference
+    from tdbench.standin import standin_ranks
+
+    config = {"pat_str": KIMI_PATTERN, "n_mergeable_ranks": 60000,
+              "assumed": {"sample_bytes": {"prose": 1 << 16,
+                                           "code": 1 << 13}}}
+    ranks = standin_ranks(config, 2**31 + 5)
+    specials = {"[BOS]": 60000, "[EOS]": 60001, "<|im_end|>": 60002}
+    tok = Tokenizer("kimi", pat_str=KIMI_PATTERN, mergeable_ranks=ranks,
+                    special_tokens=specials, backend="device", device=dev)
+    assert tok._get_device().host._re is None  # no regex split anywhere
+    ref = Reference(KIMI_PATTERN, ranks, specials)
+    rng = np.random.default_rng(21)
+    text = "[EOS]".join(han_text(rng, 1 << 18) for _ in range(3))
+    text = text + "<|im_end|>" + han_text(rng, 1 << 21)
+    assert len(text.rsplit("<|im_end|>", 1)[1].encode()) > 1 << 22
+    assert tok.encode(text, allowed_special="all") == ref.encode(text)
+    stats = tok._device.stats
+    assert stats.cut_windows >= 1 and stats.spliced_han >= 1
+    assert stats.host_advance_windows == 0
+    assert (stats.batched_windows, stats.window_batches) == (3, 1)
+    short = [han_text(rng, int(k)) for k in rng.integers(1, 1200, 40)]
+    assert tok.encode_batch(short, allowed_special="all") == [
+        ref.encode(t) for t in short]
+    assert stats.grid_rows >= 40

@@ -230,3 +230,52 @@ def fused_window(seed: int, n: int = 1 << 16):
     data = np.zeros(n, np.uint8)
     data[: len(raw)] = np.frombuffer(raw, np.uint8)
     return ranks, specials, starts, boc, data, len(raw), len(raw) - 3000
+
+
+def _assigned(a: int, b: int) -> list[str]:
+    import unicodedata
+
+    return [chr(c) for c in range(a, b + 1)
+            if unicodedata.category(chr(c)) != "Cn"]
+
+
+# Han-heavy text for the kimi profile: Han runs (every kind of Han char:
+# letters, the marks and numerals, the radicals, Extension I), beside the
+# chars that decide where a Han run starts and what runs into it: digits,
+# punctuation ("/" too), spaces, newlines, marks, contractions, kana,
+# Hangul and fullwidth forms, often with no space between.
+_HAN = [(list("的一是不了人我在有他这中大来上国个到说们为子和你地出道也时年"), 40),
+        (_assigned(0x4E00, 0x9FFF), 30), (_assigned(0x3400, 0x4DBF), 5),
+        (_assigned(0x20000, 0x2A6DF), 5), (_assigned(0x2E80, 0x2FD5), 6),
+        (list("々〇〻〡〢〩〸〺\U00016fe2\U00016fe3\U00016ff0\U00016ff1"), 12)]
+_HAN_EDGE = ["1", "12", "123", "2024", "3.5%", " ", "  ", "\t", "\n", "\r\n",
+             "/", "!", "'s", "'LL", "GPU", "a", " x", "́", "〪",
+             "，", "。", "、", "「", "」", "（", "　", "・", "ー", "テキ",
+             "한국", "\U00017000", "²", "٣", "Ⅻ", "é", "ABc", "!!", "\n/",
+             " /", "🙂"]
+
+
+# Extension I (U+2EBF0-U+2EE5D): Han to tiktoken and to the port, which
+# read Unicode 15.1; unassigned in Python 3.12's Unicode 15.0, which the
+# benchmark's reference reads
+_HAN_EXT_I = ([chr(c) for c in range(0x2EBF0, 0x2EE5E)], 2)
+
+
+def han_text(rng: np.random.Generator, n: int, *,
+             ext_i: bool = False) -> str:
+    """About n chars of seeded Han-heavy text (see ``_HAN``), with
+    Extension I where ``ext_i``."""
+    pools = _HAN + [_HAN_EXT_I] if ext_i else _HAN
+    weights = np.array([w for _, w in pools], float)
+    weights /= weights.sum()
+    parts, size = [], 0
+    while size < n:
+        if rng.random() < 0.45:
+            chars = pools[int(rng.choice(len(pools), p=weights))][0]
+            s = "".join(chars[int(i)] for i in
+                        rng.integers(len(chars), size=int(rng.integers(1, 9))))
+        else:
+            s = _HAN_EDGE[int(rng.integers(len(_HAN_EDGE)))]
+        parts.append(s)
+        size += len(s)
+    return "".join(parts)[:n]

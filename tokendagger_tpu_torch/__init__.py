@@ -24,6 +24,7 @@ from .streaming import StreamingEncoder
 from .vocab import (
     CL100K_PATTERN,
     GPT2_PATTERN,
+    KIMI_PATTERN,
     LLAMA4_PATTERN,
     classify_pattern,
     load_hf_special_tokens,
@@ -47,6 +48,7 @@ __all__ = [
     "EngineStats",
     "GPT2_PATTERN",
     "HostEngine",
+    "KIMI_PATTERN",
     "LLAMA4_PATTERN",
     "ResidentResult",
     "ResidentStream",

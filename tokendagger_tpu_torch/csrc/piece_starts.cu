@@ -382,6 +382,33 @@ piece_starts_words_kernel(const int32_t* words, const int32_t* nchars, int N,
   store_plane_major(S, o.C, out);
 }
 
+// The kimi profile's window entries: the same with its Han rules
+// (starts_derive.cuh han_prepass), kernels of their own so that the other
+// profiles' kernels compile as they did without them.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+piece_starts_cp_kimi_kernel(const int32_t* cp, const int32_t* nchars, int N,
+                            int profile, const uint16_t* table,
+                            uint32_t* scratch, uint32_t* out) {
+  __shared__ Shared sh;
+  const int b = blockIdx.y;
+  GridOps o = window_ops(scratch, N, &sh);
+  const uint32_t* S = td::derive_window_cp<true>(
+      o, cp + (size_t)b * N, nchars[b], table, profile, N);
+  store_plane_major(S, o.C, out);
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+piece_starts_words_kimi_kernel(const int32_t* words, const int32_t* nchars,
+                               int N, int profile, uint32_t* scratch,
+                               uint32_t* out) {
+  __shared__ Shared sh;
+  const int b = blockIdx.y;
+  GridOps o = window_ops(scratch, N, &sh);
+  const uint32_t* S = td::derive_window_words<true>(
+      o, words + (size_t)b * N, nchars[b], profile, N);
+  store_plane_major(S, o.C, out);
+}
+
 // Row entry: block b derives row b of codepoints in shared memory and
 // writes its plane-major words with the any-C transpose.
 __global__ void __launch_bounds__(kRowThreads)
@@ -394,6 +421,23 @@ piece_starts_row_kernel(const int32_t* cp, const int32_t* nchars, int N,
   RowOps o{s_planes, C, 0, &sh};
   const uint32_t* S = td::derive_window_cp(o, cp + (size_t)b * N, nchars[b],
                                            table, profile, N);
+  uint32_t* ob = out + (size_t)b * C;
+  for (int w = threadIdx.x; w < C; w += blockDim.x)
+    ob[w] = td::plane_major_word(S, C, w);
+}
+
+// The row entry under kimi.
+__global__ void __launch_bounds__(kRowThreads)
+piece_starts_row_kimi_kernel(const int32_t* cp, const int32_t* nchars, int N,
+                             int profile, const uint16_t* table,
+                             uint32_t* out) {
+  extern __shared__ uint32_t s_planes[];
+  __shared__ Shared sh;
+  const int b = blockIdx.x;
+  const int C = N / 32;
+  RowOps o{s_planes, C, 0, &sh};
+  const uint32_t* S = td::derive_window_cp<true>(o, cp + (size_t)b * N,
+                                                 nchars[b], table, profile, N);
   uint32_t* ob = out + (size_t)b * C;
   for (int w = threadIdx.x; w < C; w += blockDim.x)
     ob[w] = td::plane_major_word(S, C, w);
@@ -463,10 +507,14 @@ long long td_piece_starts_scratch_words(int N) {
   return (long long)td::STARTS_PLANES * (N / 32);
 }
 
-// Passes over the window's planes one derivation makes.
+// Passes over the window's planes one derivation makes (kimi: of general
+// text, which has its Han rules; its ASCII windows make llama4's).
 int td_piece_starts_passes(int profile, int N) {
   CountOps o{N / 32, 0, 0, 0u};
-  td::derive_window(o, nullptr, 0, nullptr, profile, N);
+  if (profile == td::P_KIMI)
+    td::derive_window_cp<true>(o, nullptr, 0, nullptr, profile, N);
+  else
+    td::derive_window(o, nullptr, 0, nullptr, profile, N);
   return o.passes;
 }
 
@@ -485,10 +533,12 @@ int td_piece_starts_blocks(int entry, int B, int N) {
 // data (B, N) uint8, nbytes (B,) int32, lut 128 class words, scratch
 // B * td_piece_starts_scratch_words(N) words, out (B, N/32) uint32.
 // N must be a multiple of 1024. Launches on `stream` one at a time: the
-// segment maps live in one module-wide buffer.
+// segment maps live in one module-wide buffer. kimi's ASCII windows have no
+// Han: they run llama4's derivation over kimi's table (`lut`).
 int td_piece_starts(const void* data, const void* nbytes, int B, int N,
                     int profile, const uint32_t* lut, void* scratch,
                     void* out, void* stream) {
+  if (profile == td::P_KIMI) profile = td::P_LLAMA4;
   Lut l;
   for (int i = 0; i < 128; ++i) l.v[i] = lut[i];
   const size_t words = (size_t)td_piece_starts_scratch_words(N);
@@ -508,8 +558,10 @@ int td_piece_starts_cp(const void* cp, const void* nchars, int B, int N,
                        int profile, const void* table, void* scratch,
                        void* out, void* stream) {
   const size_t words = (size_t)td_piece_starts_scratch_words(N);
-  return run_groups(piece_starts_cp_kernel, B, N, [&](int b0, int G, int S) {
-    return launch(piece_starts_cp_kernel, S, G, (cudaStream_t)stream,
+  const auto kernel = profile == td::P_KIMI ? piece_starts_cp_kimi_kernel
+                                            : piece_starts_cp_kernel;
+  return run_groups(kernel, B, N, [&](int b0, int G, int S) {
+    return launch(kernel, S, G, (cudaStream_t)stream,
                   (const int32_t*)cp + (size_t)b0 * N,
                   (const int32_t*)nchars + b0, N, profile,
                   (const uint16_t*)table, (uint32_t*)scratch + b0 * words,
@@ -524,9 +576,11 @@ int td_piece_starts_words(const void* words, const void* nchars, int B,
                           int N, int profile, void* scratch, void* out,
                           void* stream) {
   const size_t sw = (size_t)td_piece_starts_scratch_words(N);
+  const auto kernel = profile == td::P_KIMI ? piece_starts_words_kimi_kernel
+                                            : piece_starts_words_kernel;
   return run_groups(
-      piece_starts_words_kernel, B, N, [&](int b0, int G, int S) {
-        return launch(piece_starts_words_kernel, S, G, (cudaStream_t)stream,
+      kernel, B, N, [&](int b0, int G, int S) {
+        return launch(kernel, S, G, (cudaStream_t)stream,
                       (const int32_t*)words + (size_t)b0 * N,
                       (const int32_t*)nchars + b0, N, profile,
                       (uint32_t*)scratch + b0 * sw,
@@ -547,7 +601,9 @@ int td_piece_starts_cp_rows(const void* cp, const void* nchars, int B, int N,
   const int C = N / 32;
   const int threads = (C + 31) / 32 * 32;
   const size_t smem = (size_t)td::STARTS_PLANES * C * sizeof(uint32_t);
-  piece_starts_row_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+  const auto kernel = profile == td::P_KIMI ? piece_starts_row_kimi_kernel
+                                            : piece_starts_row_kernel;
+  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)cp, (const int32_t*)nchars, N, profile,
       (const uint16_t*)table, (uint32_t*)out);
   return (int)cudaGetLastError();

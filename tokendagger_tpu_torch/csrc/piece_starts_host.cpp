@@ -26,10 +26,14 @@ struct SegOps {
   int passes;
   int S;
   std::vector<uint32_t> agg;  // segment maps of a scan, by scan order
+  int peak = 0;               // most planes handed out at once
 
   // the scratch holds twice the planes the card's kernel may use, so an
   // overrun is reported (below) instead of corrupting memory
-  uint32_t* plane() { return scratch + (size_t)(next++ % (2 * td::STARTS_PLANES)) * C; }
+  uint32_t* plane() {
+    if (next + 1 > peak) peak = next + 1;
+    return scratch + (size_t)(next++ % (2 * td::STARTS_PLANES)) * C;
+  }
 
   int lo(int s) const { return (int)((long long)s * C / S); }
 
@@ -98,7 +102,7 @@ int run_windows(int B, int N, int S, uint32_t* out, const D& derive) {
   for (int b = 0; b < B; ++b) {
     SegOps o{scratch.data(), C, 0, 0, S, {}};
     const uint32_t* St = derive(o, b);
-    if (o.next > td::STARTS_PLANES) return -1;
+    if (o.peak > td::STARTS_PLANES) return -1;
     store_plane_major(St, C, out + (size_t)b * C);
     passes = o.passes;
   }
@@ -114,6 +118,7 @@ extern "C" {
 int td_piece_starts_seg_host(const uint8_t* data, const int32_t* nbytes,
                              int B, int N, int profile, const uint32_t* lut,
                              int S, uint32_t* out) {
+  if (profile == td::P_KIMI) profile = td::P_LLAMA4;  // no Han in ASCII
   return run_windows(B, N, S, out, [&](SegOps& o, int b) {
     return td::derive_window(o, data + (size_t)b * N, nbytes[b], lut,
                              profile, N);
@@ -126,6 +131,9 @@ int td_piece_starts_cp_seg_host(const int32_t* cp, const int32_t* nchars,
                                 int B, int N, int profile,
                                 const uint16_t* table, int S, uint32_t* out) {
   return run_windows(B, N, S, out, [&](SegOps& o, int b) {
+    if (profile == td::P_KIMI)
+      return td::derive_window_cp<true>(o, cp + (size_t)b * N, nchars[b],
+                                        table, profile, N);
     return td::derive_window_cp(o, cp + (size_t)b * N, nchars[b], table,
                                 profile, N);
   });
@@ -137,6 +145,9 @@ int td_piece_starts_words_seg_host(const int32_t* words, const int32_t* nchars,
                                    int B, int N, int profile, int S,
                                    uint32_t* out) {
   return run_windows(B, N, S, out, [&](SegOps& o, int b) {
+    if (profile == td::P_KIMI)
+      return td::derive_window_words<true>(o, words + (size_t)b * N,
+                                           nchars[b], profile, N);
     return td::derive_window_words(o, words + (size_t)b * N, nchars[b],
                                    profile, N);
   });

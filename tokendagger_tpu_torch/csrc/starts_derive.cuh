@@ -1,8 +1,10 @@
 // Piece-start derivation over char-major bit planes.
 //
 // The word-space derivation of the JAX package's ops/bitplane.py
-// (derive_starts_words, _derive_cl100k_words, _derive_gpt2_words), written
-// once against an abstract "ops" backend so the same source runs
+// (derive_starts_words, _derive_cl100k_words, _derive_gpt2_words), and the
+// kimi profile's Han rules in front of the o200k one (han_prepass; the
+// port's own, as ops/bitplane._han_prepass), written once against an
+// abstract "ops" backend so the same source runs
 //   * on the card, each window split into segments of words, one thread
 //     block per segment, with a barrier after every pass
 //     (piece_starts.cu), and
@@ -28,6 +30,9 @@
 //       out[w] bit j = state after char 32w+j, scanning forward from
 //       state 0 before char 0 (rev: backward from state 0 after the last
 //       char; out then holds the state "after" in scan order).
+//   int next;                       planes handed out so far; a derivation
+//                                   may set it back to reuse planes whose
+//                                   contents it no longer reads
 // Every pass reads only planes written by earlier passes: no pass writes a
 // plane it reads at another word. A backend may therefore split a pass's
 // words among workers that meet at a barrier after it, and split a scan
@@ -54,10 +59,14 @@ enum : int {
   B_GRV,  // fold letters r v
   B_GE,   // fold letter e
   B_GL,   // fold letter l
-  N_LUT_BITS
+  N_LUT_BITS,
+  B_HAN = N_LUT_BITS,  // Han (kimi's codepoint table only)
+  N_CLASS_BITS
 };
 
-enum : int { P_LLAMA4 = 0, P_NOCONTRACT = 1, P_CL100K = 2, P_GPT2 = 3 };
+enum : int {
+  P_LLAMA4 = 0, P_NOCONTRACT = 1, P_CL100K = 2, P_GPT2 = 3, P_KIMI = 4
+};
 
 // scratch planes one window needs (checked by the backends)
 constexpr int STARTS_PLANES = 48;
@@ -161,11 +170,15 @@ TD_FN uint32_t valid_word(int w, int m) {
   return (1u << (uint32_t)t) - 1u;
 }
 
-// The class planes of one window.
-struct Masks {
+// The class planes of one window: NB class bits, N_CLASS_BITS (with
+// bit[B_HAN]) under kimi.
+template <int NB>
+struct MasksN {
   uint32_t* valid;
-  uint32_t* bit[N_LUT_BITS];
+  uint32_t* bit[NB];
 };
+using Masks = MasksN<N_LUT_BITS>;
+using MasksHan = MasksN<N_CLASS_BITS>;
 
 // Mask construction (_char_masks_planes): bytes at or beyond m belong to
 // no class; a valid byte's classes come from lut[byte & 0x7F], as the
@@ -197,20 +210,21 @@ TD_FN Masks build_masks(O& o, const uint8_t* data, int m,
 }
 
 // Mask construction for general text (_char_masks): chars at or beyond m
-// belong to no class; a valid char i has the class word cls(i).
-template <class O, class F>
-TD_FN Masks build_masks_from(O& o, int m, const F& cls) {
-  Masks M;
+// belong to no class; a valid char i has the class word cls(i). NB planes
+// of class bits: N_LUT_BITS, or N_CLASS_BITS with Han.
+template <int NB, class O, class F>
+TD_FN MasksN<NB> build_masks_from(O& o, int m, const F& cls) {
+  MasksN<NB> M;
   M.valid = o.plane();
-  for (int i = 0; i < N_LUT_BITS; ++i) M.bit[i] = o.plane();
+  for (int i = 0; i < NB; ++i) M.bit[i] = o.plane();
   o.each([&](int w) {
-    uint32_t acc[N_LUT_BITS];
-    for (int i = 0; i < N_LUT_BITS; ++i) acc[i] = 0u;
+    uint32_t acc[NB];
+    for (int i = 0; i < NB; ++i) acc[i] = 0u;
     for (int j = 0; j < 32 && 32 * w + j < m; ++j) {
       const uint32_t c = cls(32 * w + j);
-      for (int i = 0; i < N_LUT_BITS; ++i) acc[i] |= ((c >> i) & 1u) << j;
+      for (int i = 0; i < NB; ++i) acc[i] |= ((c >> i) & 1u) << j;
     }
-    for (int i = 0; i < N_LUT_BITS; ++i) M.bit[i][w] = acc[i];
+    for (int i = 0; i < NB; ++i) M.bit[i][w] = acc[i];
     M.valid[w] = valid_word(w, m);
   });
   return M;
@@ -264,11 +278,130 @@ TD_FN uint32_t* stride3_marks(O& o, const FS& seed, const FC& carrier,
 }
 
 // ---------------------------------------------------------------------------
+// kimi: the Han rules (ops/bitplane._han_prepass has the full account)
+// ---------------------------------------------------------------------------
+// Kimi K2's pattern tries [\p{Han}]+ first and leaves Han out of its word
+// classes, so a piece that starts on a Han char is the rest of its Han run;
+// only the punctuation body (Han So/Po/Mc) and \p{N}{1,3} (Han Nl) run on
+// into Han chars ("swallow" them). han_prepass finds the swallowed ones and
+// rewrites M so that every other Han char is a class of its own (no num,
+// let set, bit[B_HAN]); derive_o200k<true> over it gives Kimi K2's starts.
+// It returns the plane chi (bit i: char i is third in a digit group or in
+// none), which han_group_starts reads. Planes: chi and the body scan stay;
+// the 12 planes of the digit maps are handed back (o.next) for the
+// derivation after it.
+template <class O>
+TD_FN uint32_t* han_prepass(O& o, const MasksHan& M, int n_total) {
+  const int C = o.C;
+  const Pl valid{M.valid}, ws{M.bit[B_WS]}, let{M.bit[B_LET]},
+      num{M.bit[B_NUM]}, uc{M.bit[B_UC]}, lc{M.bit[B_LC]}, sp{M.bit[B_SP]},
+      han{M.bit[B_HAN]};
+  uint32_t* chi = o.plane();
+  uint32_t* body = o.plane();
+  const int reuse = o.next;
+  auto WD = [&](int u) { return uc(u) | lc(u); };
+  auto PUK = [&](int u) { return ~(ws(u) | let(u) | num(u)) & valid(u); };
+
+  // punctuation bodies: b[i] = (b[i-1] & cont[i]) | set[i]
+  affine_fwd(o, body,
+             [&](int w) {
+               const uint32_t pu = PUK(w), wd = WD(w), h = han(w);
+               const uint32_t plain = pu & ~wd & ~h;
+               return (plain & nxf(WD, w, 1, C)) | (pu & wd) | (pu & h);
+             },
+             [&](int w) {
+               const uint32_t pu = PUK(w), wd = WD(w), h = han(w);
+               const uint32_t plain = pu & ~wd & ~h;
+               const uint32_t wn = nxf(WD, w, 1, C);
+               return (plain & ~wn) |
+                      (((plain & wn) | (pu & h)) & prvf(sp, w, 1, C));
+             });
+
+  // digit groups: maps of the states {0, 1, 2} as (hi, lo) bit pairs, the
+  // three inputs' in planes 0-1, 2-3, 4-5; doubled while the span < n
+  uint32_t* a[6];
+  uint32_t* b[6];
+  for (int i = 0; i < 6; ++i) a[i] = o.plane();
+  for (int i = 0; i < 6; ++i) b[i] = o.plane();
+  o.each([&](int w) {
+    const uint32_t nm = num(w), d = nm & ~han(w);
+    a[0][w] = ~nm;
+    a[1][w] = nm;
+    a[2][w] = 0xFFFFFFFFu;
+    a[3][w] = 0u;
+    a[4][w] = ~d;
+    a[5][w] = 0u;
+  });
+  for (int k = 1; k < n_total; k *= 2) {
+    uint32_t* const* A = a;
+    uint32_t* const* B = b;
+    o.each([&](int w) {
+      const uint32_t h0 = A[0][w], l0 = A[1][w], h1 = A[2][w],
+                     l1 = A[3][w], h2 = A[4][w], l2 = A[5][w];
+      TD_UNROLL
+      for (int s = 0; s < 3; ++s) {
+        // the earlier span's map, the state 2 before the window
+        const Pl AH{A[2 * s]}, AL{A[2 * s + 1]};
+        const uint32_t eh = ~prvf([&](int u) { return ~AH(u); }, w, k, C);
+        const uint32_t el = prvf(AL, w, k, C);
+        const uint32_t e0 = ~eh & ~el;
+        B[2 * s][w] = (eh & h2) | (el & h1) | (e0 & h0);
+        B[2 * s + 1][w] = (eh & l2) | (el & l1) | (e0 & l0);
+      }
+    });
+    for (int i = 0; i < 6; ++i) {
+      uint32_t* t = a[i];
+      a[i] = b[i];
+      b[i] = t;
+    }
+  }
+
+  // the Han run chars: han & ~swallowed; M rewritten in place, word by word
+  {
+    const Pl A0{a[0]}, BODY{body};
+    uint32_t* mnum = M.bit[B_NUM];
+    uint32_t* mlet = M.bit[B_LET];
+    uint32_t* mhan = M.bit[B_HAN];
+    o.each([&](int w) {
+      const uint32_t at_group = ~prvf([&](int u) { return ~A0(u); }, w, 1, C);
+      const uint32_t h = han(w), nm = num(w), pu = PUK(w);
+      const uint32_t run = h & ~(nm & ~at_group) & ~(pu & BODY(w));
+      chi[w] = A0(w);
+      mnum[w] = nm & ~run;
+      mlet[w] = let(w) | run;
+      mhan[w] = run;
+    });
+  }
+  o.next = reuse;
+  return chi;
+}
+
+// Digit group starts under kimi: a digit (Han run chars have none left)
+// whose previous char is third in a group or in none.
+template <class O>
+TD_FN uint32_t* han_group_starts(O& o, const MasksHan& M,
+                                 const uint32_t* chi) {
+  const int C = o.C;
+  const Pl num{M.bit[B_NUM]}, CHI{chi};
+  uint32_t* out = o.plane();
+  ew(o, out, [&](int w) {
+    return num(w) & ~prvf([&](int u) { return ~CHI(u); }, w, 1, C);
+  });
+  return out;
+}
+
+// ---------------------------------------------------------------------------
 // o200k family (llama4, nocontract): derive_starts_words
 // ---------------------------------------------------------------------------
-template <class O>
-TD_FN void derive_o200k(O& o, const Masks& M, bool contractions, int n_total,
-                        uint32_t* out) {
+//
+// With HAN (kimi), han_prepass has rewritten M: bit[B_HAN] holds the chars
+// of Han run pieces, a region of their own here, and `chi` gives the digit
+// groups' starts in place of stride3_marks.
+template <bool HAN, class O>
+TD_FN void derive_o200k(O& o,
+                        const MasksN<HAN ? N_CLASS_BITS : N_LUT_BITS>& M,
+                        bool contractions, int n_total, uint32_t* out,
+                        const uint32_t* chi = nullptr) {
   const int C = o.C;
   const Pl valid{M.valid}, ws{M.bit[B_WS]}, rn{M.bit[B_RN]},
       let{M.bit[B_LET]}, num{M.bit[B_NUM]}, uc{M.bit[B_UC]},
@@ -295,7 +428,7 @@ TD_FN void derive_o200k(O& o, const Masks& M, bool contractions, int n_total,
 
   // region partition: newreg[i] = class(i) != class(i-1), set at 0
   uint32_t* newreg = o.plane();
-  {
+  if constexpr (!HAN) {
     auto K1 = [&](int u) { return num(u) & ~ws(u); };
     auto K2 = [&](int u) { return WD(u) & ~ws(u) & ~num(u); };
     auto K3 = [&](int u) { return valid(u) & ~ws(u) & ~num(u) & ~WD(u); };
@@ -304,6 +437,20 @@ TD_FN void derive_o200k(O& o, const Masks& M, bool contractions, int n_total,
       const uint32_t same = (ws(w) & P1(ws, w)) | (K1(w) & P1(K1, w)) |
                             (K2(w) & P1(K2, w)) | (K3(w) & P1(K3, w)) |
                             (K4(w) & P1(K4, w));
+      return ~same;
+    });
+  } else {
+    const Pl han{M.bit[B_HAN]};
+    auto K1 = [&](int u) { return num(u) & ~ws(u); };
+    auto K2 = [&](int u) { return WD(u) & ~ws(u) & ~num(u); };
+    auto K3 = [&](int u) {
+      return valid(u) & ~ws(u) & ~num(u) & ~WD(u) & ~han(u);
+    };
+    auto K4 = [&](int u) { return ~valid(u); };
+    ew(o, newreg, [&](int w) {
+      const uint32_t same = (ws(w) & P1(ws, w)) | (K1(w) & P1(K1, w)) |
+                            (K2(w) & P1(K2, w)) | (K3(w) & P1(K3, w)) |
+                            (K4(w) & P1(K4, w)) | (han(w) & P1(han, w));
       return ~same;
     });
   }
@@ -460,8 +607,14 @@ TD_FN void derive_o200k(O& o, const Masks& M, bool contractions, int n_total,
     return WD(w) & (prvf(CT2, w, 2, C) | prvf(CT3, w, 3, C)) & ~AL(w);
   });
 
-  auto NUM_SEED = [&](int u) { return num(u) & NEWREG(u); };
-  const Pl BNUM_RAW{stride3_marks(o, NUM_SEED, num, n_total)};
+  uint32_t* bnum_raw;
+  if constexpr (HAN) {
+    bnum_raw = han_group_starts(o, M, chi);
+  } else {
+    auto NUM_SEED = [&](int u) { return num(u) & NEWREG(u); };
+    bnum_raw = stride3_marks(o, NUM_SEED, num, n_total);
+  }
+  const Pl BNUM_RAW{bnum_raw};
 
   uint32_t* lau = o.plane();
   uint32_t* sor = o.plane();
@@ -677,8 +830,18 @@ TD_FN uint32_t* derive_masks(O& o, const Masks& M, int profile, int n) {
   } else if (profile == P_CL100K) {
     derive_cl100k(o, M, n, out);
   } else {
-    derive_o200k(o, M, profile == P_LLAMA4, n, out);
+    derive_o200k<false>(o, M, profile == P_LLAMA4, n, out);
   }
+  return out;
+}
+
+// kimi: class planes with bit[B_HAN] -> char-major start words. (Its ASCII
+// windows have no Han: they run llama4's derivation on kimi's byte table.)
+template <class O>
+TD_FN uint32_t* derive_masks_han(O& o, const MasksHan& M, int n) {
+  uint32_t* out = o.plane();
+  const uint32_t* chi = han_prepass(o, M, n);
+  derive_o200k<true>(o, M, true, n, out, chi);
   return out;
 }
 
@@ -702,20 +865,31 @@ TD_FN uint32_t* derive_window(O& o, const uint8_t* data, int m,
   return derive_masks(o, build_masks(o, data, m, lut), profile, n);
 }
 
-// Whole window of codepoints (general text) -> char-major start words.
-template <class O>
+// Whole window of codepoints (general text) -> char-major start words;
+// KIMI: the kimi profile (its table has the Han bit), whatever `profile`.
+template <bool KIMI = false, class O>
 TD_FN uint32_t* derive_window_cp(O& o, const int32_t* cp, int m,
                                  const uint16_t* table, int profile, int n) {
-  return derive_masks(o, build_masks_from(o, m, CpClass{cp, table}),
-                      profile, n);
+  if constexpr (KIMI)
+    return derive_masks_han(
+        o, build_masks_from<N_CLASS_BITS>(o, m, CpClass{cp, table}), n);
+  else
+    return derive_masks(
+        o, build_masks_from<N_LUT_BITS>(o, m, CpClass{cp, table}), profile,
+        n);
 }
 
-// Whole window of per-char class words -> char-major start words.
-template <class O>
+// Whole window of per-char class words -> char-major start words; KIMI as
+// for derive_window_cp.
+template <bool KIMI = false, class O>
 TD_FN uint32_t* derive_window_words(O& o, const int32_t* words, int m,
                                     int profile, int n) {
-  return derive_masks(o, build_masks_from(o, m, WordClass{words}), profile,
-                      n);
+  if constexpr (KIMI)
+    return derive_masks_han(
+        o, build_masks_from<N_CLASS_BITS>(o, m, WordClass{words}), n);
+  else
+    return derive_masks(
+        o, build_masks_from<N_LUT_BITS>(o, m, WordClass{words}), profile, n);
 }
 
 }  // namespace td

@@ -2,7 +2,7 @@
 the piece path for any tokenizer.
 
 ``DeviceEngine`` serves every tokenizer, as the JAX package's
-``engine.DeviceEngine`` does. With a pattern of one of the four profiles
+``engine.DeviceEngine`` does. With a pattern of one of the five profiles
 and a rank for every single byte it takes the *stream path*
 (``stream=True``, the default then); otherwise the *piece path*.
 
@@ -53,6 +53,11 @@ range a stage and ``td.window.read``; ``td.drain`` with ``td.copyback`` and
 ``td.splice``; ``td.safe_cut``, ``td.grid``, ``td.merge``,
 ``td.host_advance``, ``td.specials``, ``td.utf8`` and ``td.lists``.
 
+Segments that each fit one window (the spans between a document's
+special tokens) share launches: two or more of one call run as a (B, N)
+batch of windows (``_encode_windows_batched``), so that K1's ~165 passes,
+which cost a window the same whatever it holds, are paid once a batch.
+
 A window is cut at a *safe* offset (``_safe_cut_threshold``): pieces that
 end before the start of the character-class run touching the window's end
 (minus lookahead slack) cannot change with the bytes after it; the rest is
@@ -92,6 +97,7 @@ from .ops.merge import merge_rows
 from .ops.pretokenize import starts_to_bytes, utf8_decode
 from .streaming import _safe_cut_chars, coarse_classes
 from .tables import all_reachable
+from .unicode_tables import han_plane
 from .utils.profiling import span
 from .vocab import classify_pattern
 
@@ -110,6 +116,11 @@ CUT_SLACK = 16
 CARD_WINDOW = SCAN_SIZES[3]
 CPU_WINDOW = SCAN_SIZES[1]
 
+# Complete segments of one call share the window stages: at most this
+# many windows a batch, and at most BATCH_BYTES of (padded) shape.
+BATCH_WINDOWS = 8
+BATCH_BYTES = 1 << 23
+
 # Piece path: row widths of the merge batches (a longer piece merges on
 # the host) and the most rows of one merge launch. Batches are not padded
 # to a power of two: that padding served XLA's compile cache.
@@ -122,6 +133,9 @@ class EngineStats:
     """Counters and a host-clock split of the engine's work."""
 
     windows: int = 0               # device windows run
+    # of those, run by _encode_windows_batched, and its batches
+    batched_windows: int = 0
+    window_batches: int = 0
     cut_windows: int = 0           # windows ended at a safe cut
     grown_windows: int = 0         # windows retried larger (no safe cut)
     host_advance_windows: int = 0  # overflow / over-long runs, host-encoded
@@ -131,6 +145,9 @@ class EngineStats:
     spliced_whole: int = 0
     # of those, spliced by the native route (td_splice), the rest in Python
     spliced_native: int = 0
+    # of those, pieces whose first code point is Han (both routes): under
+    # kimi a Han run over 16 bytes, which the probe's keys cannot hold
+    spliced_han: int = 0
     grid_rows: int = 0             # short segments resolved in grids
     # (rows, width) grids run, by width
     grids_by_width: dict[int, int] = field(default_factory=dict)
@@ -157,7 +174,7 @@ class DeviceEngine:
     ``device`` holds the tables and runs the stages (CPU tensors run every
     kernel's plain version); ``tables`` are prebuilt ``EngineTables`` on
     it. ``stream`` picks the path; None takes the stream path when the
-    pattern is one of the four profiles and every single byte has a rank
+    pattern is one of the five profiles and every single byte has a rank
     (the JAX package's rule). ``vocab_fastpath=False`` sends every
     multi-byte piece of the piece path through the device merge, whole
     vocab tokens included; their ids still come from the whole-piece rank,
@@ -192,7 +209,7 @@ class DeviceEngine:
             stream = self._profile is not None and not self._missing_bytes
         if stream and self._profile is None:
             raise ValueError("the stream path needs a pattern of one of the "
-                             "four profiles; use stream=False")
+                             "five profiles; use stream=False")
         self.stream = bool(stream)
         self.vocab_fastpath = vocab_fastpath
         self.miss_mode = "host"
@@ -279,7 +296,8 @@ class DeviceEngine:
                 tail_n *= 4
                 continue
             co = coarse_classes(
-                np.frombuffer(tail.encode("utf-32-le"), dtype=np.uint32))
+                np.frombuffer(tail.encode("utf-32-le"), dtype=np.uint32),
+                han=self._profile == "kimi")
             # last index where the class differs -> run start is one past it
             diff = np.nonzero(co != co[-1])[0]
             if len(diff) == 0:
@@ -313,7 +331,7 @@ class DeviceEngine:
                     ids = self.host.encode_ordinary(text)
                     self._tally(host_s=time.perf_counter() - t)
                     return np.asarray(ids, dtype=np.int64), n - base
-                rs_c = _safe_cut_chars(text)
+                rs_c = _safe_cut_chars(text, han=self._profile == "kimi")
                 last_end_c = 0
                 if rs_c > 0:
                     for _, e in self.host.split_spans(text):
@@ -430,9 +448,9 @@ class DeviceEngine:
         if splicer is not None:
             got = splicer.splice(ids, window, os_s, os_l, n_os, SENTINEL)
             if got is not None:
-                out, whole = got
+                out, whole, han = got
                 self._tally(spliced_pieces=n_os, spliced_whole=whole,
-                            spliced_native=n_os)
+                            spliced_native=n_os, spliced_han=han)
                 return out
             self._splicer = None
         sent_pos = np.nonzero(ids == SENTINEL)[0]
@@ -441,10 +459,14 @@ class DeviceEngine:
                                f"{n_os} missed pieces")
         parts = []
         prev = 0
-        whole = 0
+        whole = han = 0
+        is_han = han_plane()
         for j, p in enumerate(sent_pos):
             parts.append(ids[prev:p])
             piece = window[int(os_s[j]) : int(os_s[j]) + int(os_l[j])]
+            first = piece[:4].decode("utf-8", "ignore")[:1]
+            if first and is_han[ord(first)]:
+                han += 1
             # whole-piece lookup FIRST, like the oracle (hostengine
             # encode_ordinary): a probe miss on device may be a deliberate
             # false miss (token dropped from the device hash table), and
@@ -458,7 +480,8 @@ class DeviceEngine:
             ))
             prev = p + 1
         parts.append(ids[prev:])
-        self._tally(spliced_pieces=n_os, spliced_whole=whole)
+        self._tally(spliced_pieces=n_os, spliced_whole=whole,
+                    spliced_han=han)
         return np.concatenate(parts)
 
     def encode_stream(self, data: bytes) -> np.ndarray:
@@ -517,8 +540,10 @@ class DeviceEngine:
     def encode_streams(self, segments: list[bytes]) -> list[np.ndarray]:
         """Ordinary-encode each byte segment. With four or more non-empty
         segments of at most ``ROW_WIDTHS[-1]`` bytes, those go through
-        (rows, width) grids (``_encode_small_batched``); every other
-        segment takes ``encode_stream``."""
+        (rows, width) grids (``_encode_small_batched``); two or more of
+        the rest that each fit one window share batched windows
+        (``_encode_windows_batched``); every other segment, and a batched
+        one whose window overflowed, takes ``encode_stream``."""
         self._need_stream()
         out: list[np.ndarray | None] = [None] * len(segments)
         small: list[tuple[int, bytes]] = []
@@ -529,10 +554,82 @@ class DeviceEngine:
                 small.append((i, s))
         if len(small) >= 4:  # grids pay off only with several rows
             self._encode_small_batched(small, out)
+        whole = [(i, s) for i, s in enumerate(segments)
+                 if out[i] is None and len(s) <= self._window]
+        if (len(whole) >= 2 and self.miss_mode == "host"
+                and self.join_mode == "probe"):
+            self._encode_windows_batched(whole, out)
         for i, s in enumerate(segments):
             if out[i] is None:
                 out[i] = self.encode_stream(s)
         return out  # type: ignore[return-value]
+
+    def _encode_windows_batched(self, items: list[tuple[int, bytes]],
+                                out: list[np.ndarray | None]) -> None:
+        """Resolve (index, segment) pairs, each segment complete in one
+        window, as (B, N) batches of windows: the longest first, N the
+        smallest of ``SCAN_SIZES`` that holds a batch's longest, at most
+        ``BATCH_WINDOWS`` windows and ``BATCH_BYTES`` of shape a batch.
+        A batch runs the window stages once, K1's codepoint entry on B
+        windows in one launch, so a call's card time follows its bytes
+        and not the count of its segments. Each window's trim is its
+        length (every piece is final). A window that overflowed its piece
+        slots is left in ``out`` as None for ``encode_stream``."""
+        items = sorted(items, key=lambda it: -len(it[1]))
+        lo = 0
+        while lo < len(items):
+            N = next(s for s in SCAN_SIZES if s >= len(items[lo][1]))
+            batch = items[lo : lo + max(1, min(BATCH_WINDOWS,
+                                               BATCH_BYTES // N))]
+            lo += len(batch)
+            B = len(batch)
+            drain = span("td.drain")
+            try:
+                with self._lock:
+                    with span("td.window"):
+                        t = time.perf_counter()
+                        with span("td.window.stage"):
+                            # copy each window's bytes, not its padding
+                            data = torch.zeros((B, N), dtype=torch.uint8,
+                                               device=self.device)
+                            for r, (_, s) in enumerate(batch):
+                                data[r, : len(s)] = torch.frombuffer(
+                                    bytearray(s), dtype=torch.uint8)
+                            lens = np.asarray([len(s) for _, s in batch],
+                                              dtype=np.int32)
+                            nb = torch.from_numpy(lens).to(self.device)
+                        (flat, total, _np, _nk, consumed, overflow, ms_s,
+                         ms_l, n_ms) = self.window_pipeline(data, nb, nb)
+                        with span("td.window.read"):
+                            # the one synchronizing read of the scalars
+                            ovf, total_r, n_ms_r, consumed_r = (
+                                torch.stack([overflow.to(torch.int32), total,
+                                             n_ms, consumed]).cpu().numpy())
+                        t2 = time.perf_counter()
+                    ok = (ovf == 0) & (consumed_r == lens)
+                    drain.__enter__()
+                    with span("td.copyback"):
+                        k = int(total_r[ok].max()) if ok.any() else 0
+                        flat_np = flat[:, :k].cpu().numpy()
+                        kms = int(n_ms_r[ok].max()) if ok.any() else 0
+                        if kms:
+                            ms_np = torch.stack(
+                                [ms_s[:, :kms], ms_l[:, :kms]]).cpu().numpy()
+                for r, (i, s) in enumerate(batch):
+                    if not ok[r]:
+                        continue
+                    ids = flat_np[r, : total_r[r]].astype(np.int64)
+                    if n_ms_r[r]:
+                        with span("td.splice"):
+                            ids = self._splice_oversize(
+                                ids, s, ms_np[0, r], ms_np[1, r],
+                                int(n_ms_r[r]))
+                    out[i] = ids
+                self._tally(windows=B, batched_windows=B, window_batches=1,
+                            device_s=t2 - t,
+                            drain_s=time.perf_counter() - t2)
+            finally:
+                drain.__exit__(None, None, None)
 
     def _encode_small_batched(self, items: list[tuple[int, bytes]],
                               out: list[np.ndarray | None]) -> None:

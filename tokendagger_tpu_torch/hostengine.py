@@ -120,10 +120,12 @@ class HostEngine:
         self._re = None
         if self._scan_profile is None:
             # \p{..} Unicode categories and (?i:..) scoped
-            # case-insensitivity like PCRE2
+            # case-insensitivity like PCRE2; V1, so that class set
+            # operations such as [A&&[^B]] are read as tiktoken reads them
+            # (V0 takes "&&" for literal characters)
             import regex
 
-            self._re = regex.compile(pattern)
+            self._re = regex.compile(pattern, regex.V1)
 
     # ------------------------------------------------------------------
     # Pretokenization

@@ -104,9 +104,9 @@ def get_lib() -> ctypes.CDLL | None:
         lib.td_splice.restype = i64
         # engine, data, n, ids (int64*), n_ids, miss starts and lengths
         # (int32*), n_ms, sentinel, out (int64*), cap, n_whole (int64*),
-        # nthreads
+        # n_han (int64*), nthreads
         lib.td_splice.argtypes = [p, p, i64, p, i64, p, p, i64, i64, p, i64,
-                                  p, i]
+                                  p, p, i]
         lib.td_encode_batch.restype = i64
         lib.td_encode_batch.argtypes = [p, p, p, i64, p, p, i]
         lib.td_decode.restype = i64
@@ -204,7 +204,8 @@ class NativeEngine:
     """Native scan+merge over one vocab. Thread-safe (stateless calls)."""
 
     # scanner profile ids (must match the C++ Profile enum)
-    _PROFILES = {"nocontract": 0, "llama4": 1, "cl100k": 2, "gpt2": 3}
+    _PROFILES = {"nocontract": 0, "llama4": 1, "cl100k": 2, "gpt2": 3,
+                 "kimi": 4}
 
     def __init__(
         self,
@@ -217,7 +218,7 @@ class NativeEngine:
         ranks: dict[bytes, int] | None = None,
     ):
         from ..scanner_ref import _fold_id_table
-        from ..unicode_tables import get_tables
+        from ..unicode_tables import get_tables, kimi_classes
 
         if profile is None:
             profile = "llama4" if contractions else "nocontract"
@@ -226,7 +227,8 @@ class NativeEngine:
         if lib is None:
             raise RuntimeError("native library unavailable")
         self._lib = lib
-        classes, _ = get_tables()
+        # kimi reads its own table: Han without UC or LC, and the HAN bit
+        classes = kimi_classes() if profile == "kimi" else get_tables()[0]
         # keep referenced: the C side borrows these buffers
         self._classes = np.ascontiguousarray(classes, dtype=np.uint8)
         self._fold = np.ascontiguousarray(_fold_id_table(), dtype=np.int8)
@@ -443,20 +445,24 @@ class NativeEngine:
 class NativeSplicer:
     """The native splice of a device window's missed pieces (``td_splice``)
     over a vocab-only engine: the whole-piece hash and the byte-pair LUT,
-    which are all its merge reads; no scanner tables and no pair table.
+    which are all its merge reads, and the kimi class table, whose HAN bit
+    counts the misses that start with a Han char; no pair table.
     Raises RuntimeError without a toolchain or for a vocabulary the
     engine cannot hold (``_install_vocab``). Thread-safe, as
     ``NativeEngine`` is. A window of at least 1,024 misses resolves them
     on ``threads`` threads."""
 
     def __init__(self, ranks: dict[bytes, int], byte_rank: np.ndarray):
+        from ..unicode_tables import kimi_classes
+
         self.threads = min(8, os.cpu_count() or 1)
         lib = get_lib()
         if lib is None:
             raise RuntimeError("native library unavailable")
         self._lib = lib
         self._byte_rank = np.ascontiguousarray(byte_rank, dtype=np.int32)
-        self._h = lib.td_create(None, None, None, 0, 0,
+        self._classes = kimi_classes()  # borrowed by the C side
+        self._h = lib.td_create(self._classes.ctypes.data, None, None, 0, 0,
                                 self._byte_rank.ctypes.data, 0)
         if not self._h:
             raise RuntimeError("td_create failed")
@@ -471,8 +477,9 @@ class NativeSplicer:
     def splice(self, ids: np.ndarray, data: bytes, ms_s: np.ndarray,
                ms_l: np.ndarray, n_ms: int, sentinel: int):
         """(ids with each ``sentinel`` replaced by the ids of its miss,
-        the misses found whole in the vocab): ``ids`` int64 in piece
-        order, miss j the piece ``data[ms_s[j] : ms_s[j] + ms_l[j]]``.
+        the misses found whole in the vocab, the misses whose first char
+        is Han): ``ids`` int64 in piece order, miss j the piece
+        ``data[ms_s[j] : ms_s[j] + ms_l[j]]``.
         None where a byte has no rank (the caller splices in Python);
         RuntimeError where the sentinels are not ``n_ms``."""
         ids = np.ascontiguousarray(ids, dtype=np.int64)
@@ -481,10 +488,12 @@ class NativeSplicer:
         cap = len(ids) - n_ms + int(ms_l.sum(dtype=np.int64))
         out = np.empty(max(cap, 0), dtype=np.int64)
         whole = ctypes.c_int64(0)
+        han = ctypes.c_int64(0)
         cnt = self._lib.td_splice(
             self._h, data, len(data), ids.ctypes.data, len(ids),
             ms_s.ctypes.data, ms_l.ctypes.data, n_ms, sentinel,
-            out.ctypes.data, len(out), ctypes.byref(whole), self.threads)
+            out.ctypes.data, len(out), ctypes.byref(whole),
+            ctypes.byref(han), self.threads)
         if cnt == -2:
             return None
         if cnt == -3:
@@ -493,7 +502,7 @@ class NativeSplicer:
                 f"for {n_ms} missed pieces")
         if cnt < 0:
             raise RuntimeError(f"td_splice error {cnt}")
-        return out[:cnt], whole.value
+        return out[:cnt], whole.value, han.value
 
 
 def _offsets(datas: list[bytes]) -> np.ndarray:

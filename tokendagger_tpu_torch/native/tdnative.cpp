@@ -45,6 +45,9 @@ constexpr uint8_t LETTER = 0x04;
 constexpr uint8_t NUM = 0x08;
 constexpr uint8_t UC = 0x10;
 constexpr uint8_t LC = 0x20;
+// Han (\p{Han}), in the kimi profile's table (unicode_tables.kimi_classes),
+// which also has no UC or LC on Han
+constexpr uint8_t HAN = 0x40;
 
 // fold-letter ids (must match scanner_ref._FOLD_ORDER = "strevmld")
 enum FoldId : int8_t { F_S = 0, F_T, F_R, F_E, F_V, F_M, F_L, F_D };
@@ -106,7 +109,11 @@ struct Tables {
 
 // scanner profiles, carried in Tables.contractions (backwards compatible:
 // 0/1 keep their original off/on meaning for the o200k family)
-enum Profile : int { P_NOCONTRACT = 0, P_LLAMA4 = 1, P_CL100K = 2, P_GPT2 = 3 };
+// P_KIMI: llama4's alternatives after a Han-run alternative, over the
+// kimi table, with the punctuation tail [\r\n]*
+enum Profile : int {
+  P_NOCONTRACT = 0, P_LLAMA4 = 1, P_CL100K = 2, P_GPT2 = 3, P_KIMI = 4
+};
 
 inline uint64_t fnv1a(const uint8_t* p, int64_t n) {
   uint64_t h = 1469598103934665603ull;
@@ -304,7 +311,9 @@ struct BScan {
 
   // contraction suffix end at e ('s|'t|'re|'ve|'m|'ll|'d, case-folded)
   inline const uint8_t* ct(const uint8_t* e) const {
-    if (t->contractions != P_LLAMA4 || e >= end || *e != '\'') return e;
+    if ((t->contractions != P_LLAMA4 && t->contractions != P_KIMI) ||
+        e >= end || *e != '\'')
+      return e;
     const uint8_t* p = e + 1;
     if (p >= end) return e;
     int32_t c1;
@@ -505,6 +514,18 @@ struct BScan {
     const uint8_t* p1ptr = dec(p, &c0);
     uint8_t k0 = cls(c0);
 
+    // kimi: [\p{Han}]+ first
+    if (k0 & HAN) {
+      const uint8_t* e = p1ptr;
+      while (e < end) {
+        int32_t c;
+        const uint8_t* ne = dec(e, &c);
+        if (!(cls(c) & HAN)) break;
+        e = ne;
+      }
+      return e;
+    }
+
     // word alternatives (A1 before A2; prefix-greedy within each)
     bool pfx_ok = !(k0 & (RN | LETTER | NUM));
     const uint8_t* wpre = nullptr;
@@ -550,7 +571,10 @@ struct BScan {
           e = ne;
         }
         if (e > q) {
-          while (e < end && (*e == '\r' || *e == '\n' || *e == '/')) ++e;
+          const bool slash = t->contractions != P_KIMI;
+          while (e < end &&
+                 (*e == '\r' || *e == '\n' || (slash && *e == '/')))
+            ++e;
           return e;
         }
         // space with no punct after: fall through to whitespace family
@@ -1067,14 +1091,16 @@ constexpr int64_t SPLICE_PARALLEL_MIN = 1024;
 // out (capacity cap; n_ids - n_ms + the misses' bytes always suffices)
 // receives the ids with each sentinel replaced by its piece's ids.
 // Returns the id count and sets *n_whole to the misses found whole in the
-// vocab; -1 if cap is too small, -2 if a byte has no rank or no vocab hash
-// is installed (the caller keeps the exact Python splice), -3 if the
-// sentinels are not n_ms, -4 if a miss lies outside data.
+// vocab and *n_han to those whose first code point has HAN in the
+// engine's class table (0 without one); -1 if cap is too small, -2 if a
+// byte has no rank or no vocab hash is installed (the caller keeps the
+// exact Python splice), -3 if the sentinels are not n_ms, -4 if a miss
+// lies outside data.
 int64_t td_splice(const void* h, const uint8_t* data, int64_t n,
                   const int64_t* ids, int64_t n_ids, const int32_t* ms_s,
                   const int32_t* ms_l, int64_t n_ms, int64_t sentinel,
                   int64_t* out, int64_t cap, int64_t* n_whole,
-                  int nthreads) {
+                  int64_t* n_han, int nthreads) {
   const Tables* t = (const Tables*)h;
   // miss j's ids land in `got` from off[j], its first byte's offset among
   // the misses' bytes: a piece has no more ids than bytes
@@ -1132,7 +1158,18 @@ int64_t td_splice(const void* h, const uint8_t* data, int64_t n,
     ++j;
   }
   if (j != n_ms) return -3;
+  int64_t han = 0;
+  if (t->classes) {
+    BScan sc{t, data + n};
+    for (int64_t q = 0; q < n_ms; ++q) {
+      if (ms_l[q] <= 0) continue;
+      int32_t c;
+      sc.dec(data + ms_s[q], &c);
+      han += (t->classes[c] & HAN) != 0;
+    }
+  }
   *n_whole = whole;
+  *n_han = han;
   return count;
 }
 

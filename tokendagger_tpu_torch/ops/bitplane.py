@@ -1,7 +1,7 @@
 r"""Piece starts: bit-plane derivation and kernel K1.
 
 For a supported pattern profile (llama4/o200k, nocontract/Tekken, cl100k,
-gpt2) two entry points turn windows into piece-start flags:
+gpt2, kimi/Kimi K2) two entry points turn windows into piece-start flags:
 
 * ``piece_starts_bits``: ASCII windows of raw bytes, the counterpart of
   the JAX package's ``ops/bitplane.piece_starts_bits_pallas(...,
@@ -38,7 +38,11 @@ plane carries (``_affine_fwd``).
 
 Exactness: held equal to the JAX package's Pallas kernel (interpret mode)
 and to ``scanner_ref`` in tests/test_torch_bitplane.py; the kernel is held
-equal to this plain version on the card by chip_smoke.py.
+equal to this plain version on the card by chip_smoke.py. The kimi
+profile, which the JAX package lacks, runs ``_han_prepass`` in front of
+the o200k derivation; tests/test_torch_kimi.py holds it to ``regex`` V1's
+split of Kimi K2's pattern and tests/test_torch_cuda.py the kernel to it
+on the card.
 """
 
 from __future__ import annotations
@@ -339,6 +343,8 @@ def _char_masks_planes(by: torch.Tensor, m: torch.Tensor, *,
     sp = members(classes["sp"])
     apo = members(classes["apo"])
     rnsl = rn | members(classes["rnsl"] - classes["rn"])
+    if profile == "kimi":  # punctuation tail [\r\n]*; ASCII has no Han
+        rnsl = rn
 
     if profile == "gpt2":
         lit = {ch: members(frozenset([ord(ch)])) for ch in "sdmtlver"}
@@ -360,6 +366,7 @@ def _char_masks_planes(by: torch.Tensor, m: torch.Tensor, *,
     return dict(
         valid=valid, ws=ws, rn=rn, let=let, num=num, uc=uc, lc=lc,
         sp=sp, apo=apo, rnsl=rnsl, fold1=fold_one, fold2=fold_two,
+        han=torch.zeros_like(valid),
     )
 
 
@@ -380,6 +387,9 @@ def derive_starts_words(
         return _derive_cl100k_words(P, n_total=n_total)
     if profile == "gpt2":
         return _derive_gpt2_words(P, n_total=n_total)
+    b_num = None
+    if profile == "kimi":
+        P, b_num = _han_prepass(P, n_total=n_total)
     valid, ws, rn, let, num = P["valid"], P["ws"], P["rn"], P["let"], P["num"]
     uc, lc, sp, apo, rnsl = P["uc"], P["lc"], P["sp"], P["apo"], P["rnsl"]
     fold1, fold2 = P["fold1"], P["fold2"]
@@ -410,6 +420,13 @@ def derive_starts_words(
         (k0 & prev1(k0)) | (k1 & prev1(k1)) | (k2 & prev1(k2))
         | (k3 & prev1(k3)) | (k4 & prev1(k4))
     )
+    if b_num is not None:  # kimi: each Han run piece is a region of its own
+        k5 = P["han"]
+        k3 = k3 & ~k5
+        same = (
+            (k0 & prev1(k0)) | (k1 & prev1(k1)) | (k2 & prev1(k2))
+            | (k3 & prev1(k3)) | (k4 & prev1(k4)) | (k5 & prev1(k5))
+        )
     newreg = ~same  # char 0: all prev1 False -> newreg set
 
     def a4_cover_b(bound_into, absorbed, PUx, purc, bad):
@@ -507,7 +524,8 @@ def derive_starts_words(
     forced_entry = wd & (prevk(ct2, 2) | prevk(ct3, 3)) & ~absorbed_letters
 
     # ================= boundary rules (:798-844) ==========================
-    b_num = num & stride_marks(num & newreg, num, 3, n_total)
+    if b_num is None:
+        b_num = num & stride_marks(num & newreg, num, 3, n_total)
 
     # word rules: r1 needs "an L in [wd_start, i-1] after the last U";
     # r2 needs "no O/L from i to the wd-run end" (breaks at ~wd only).
@@ -554,6 +572,79 @@ def derive_starts_words(
     # char 0: start iff m > 0 == valid bit 0 of word 0
     starts = (starts & ~at0) | (valid & at0)
     return starts
+
+
+def _han_prepass(P: dict, *, n_total: int):
+    """The kimi profile's Han rules, as planes for the o200k derivation.
+
+    Kimi K2's pattern tries ``[\\p{Han}]+`` first, and its word classes
+    leave Han out (``char_class_words("kimi")`` has no UC or LC on Han).
+    So a piece that starts on a Han char is the rest of that char's Han
+    run, and no piece that starts elsewhere takes a Han letter. Two
+    alternatives may still run on into Han chars that are not letters
+    (they *swallow* them): the punctuation body ``[^\\s\\p{L}\\p{N}]+``
+    takes Han So/Po/Mc chars (the radicals, U+16FE2, U+16FF0-1), and
+    ``\\p{N}{1,3}`` takes Han Nl chars (U+3007 and the Hangzhou numerals).
+    Every other Han char belongs to a Han run piece. Written as the text
+    with each such char a class of its own (``han``: no ``num``, but
+    ``let``, so no prefix, punctuation or word binds to it, and a region
+    of its own in the derivation), the o200k derivation over it gives
+    Kimi K2's starts exactly.
+
+    * A Han punctuation char is swallowed where the piece before it is in
+      a punctuation body, or is the space of `` ?``: one forward scan
+      ``b``. A non-Han punctuation char P (not a mark) starts or continues
+      a body, unless a word char follows it, as it then is the prefix of
+      a word (only after a space, which takes the body first, does it
+      stay in one); a mark or a Han punctuation char keeps ``b``.
+    * Digit groups: the state c_i of char i in ``\\p{N}{1,3}`` (0, 1, 2:
+      its place in a group; 2 also for a char outside any group) moves by
+      D (a non-Han digit) 0->1->2->0, by H (a Han digit) 0->1, 1->2,
+      2->2 (a Han digit at a group's start begins a Han run) and by any
+      other char to 2. Maps of {0,1,2} compose by doubling the span
+      (``ceil(log2 n)`` steps, 2 bits an input); a Han digit with c_{i-1}
+      < 2 is swallowed, and a digit group starts where c_{i-1} == 2 at a
+      digit that is not a Han run's.
+
+    Returns (P with ``num``, ``let`` and ``han`` rewritten, the digit
+    group starts)."""
+    valid, ws, let, num = P["valid"], P["ws"], P["let"], P["num"]
+    wd = P["uc"] | P["lc"]
+    han = P["han"]
+    ones = torch.full_like(valid, _ALL1)
+    zero = torch.zeros_like(valid)
+
+    def prev_fill1(x, k):
+        return ~prevk(~x, k)
+
+    # digit groups: maps (hi, lo) of states 0, 1, 2 (0 = 00, 1 = 01, 2 = 10)
+    dig = num & ~han
+    maps = [(~num, num), (ones, zero), (~dig, zero)]
+    k = 1
+    while k < n_total:
+        earlier = [(prev_fill1(h, k), prevk(lo, k)) for h, lo in maps]
+        (h0, l0), (h1, l1), (h2, l2) = maps
+        maps = [((eh & h2) | (el & h1) | (~eh & ~el & h0),
+                 (eh & l2) | (el & l1) | (~eh & ~el & l0))
+                for eh, el in earlier]
+        k *= 2
+    at_group = prev_fill1(maps[0][0], 1)  # c_{i-1} == 2
+    swallow_num = num & han & ~at_group
+
+    # punctuation bodies
+    puk = ~(ws | let | num) & valid
+    han_pu = puk & han
+    plain = puk & ~wd & ~han
+    word_next = nxtk(wd, 1)
+    after_sp = prevk(P["sp"], 1)
+    body = _affine_fwd(
+        (plain & word_next) | (puk & wd) | han_pu,
+        (plain & ~word_next) | ((plain & word_next) | han_pu) & after_sp)
+    swallow_pu = han_pu & body
+
+    run = han & ~swallow_num & ~swallow_pu
+    P = dict(P, num=num & ~run, let=let | run, han=run)
+    return P, P["num"] & at_group
 
 
 def _derive_gpt2_words(P: dict, *, n_total: int) -> torch.Tensor:
@@ -660,7 +751,8 @@ def _derive_cl100k_words(P: dict, *, n_total: int) -> torch.Tensor:
 # Kernel K1 and its plain version
 # ===========================================================================
 
-_PROFILE_ID = {"llama4": 0, "nocontract": 1, "cl100k": 2, "gpt2": 3}
+_PROFILE_ID = {"llama4": 0, "nocontract": 1, "cl100k": 2, "gpt2": 3,
+               "kimi": 4}
 
 
 @lru_cache(maxsize=4)
@@ -670,6 +762,8 @@ def class_lut(profile: str) -> np.ndarray:
     classes, fold = _ascii_class_members()
     sets = dict(classes)
     sets["let"] = classes["uc"] | classes["lc"]
+    if profile == "kimi":
+        sets["rnsl"] = classes["rn"]
     if profile == "gpt2":
         groups = ("sdmt", "rv", "e", "l")
         for name, letters in zip(("g1", "grv", "ge", "gl"), groups):

@@ -7,7 +7,8 @@ Counterparts of the JAX package's ``ops/pretokenize`` (``utf8_decode``,
   and its next three bytes and the lead-byte flag. CUDA tensors run kernel
   K9 (``csrc/utf8.cu``); CPU tensors the plain version below.
 * ``utf8_decode`` compacts those to one codepoint per char: K9, a
-  ``torch.cumsum`` for the char index of every byte, and kernel K4
+  ``torch.cumsum`` for the char index of every byte (``_char_index``),
+  and kernel K4
   (``compact.compact_by_mask``) for the compaction the JAX function does
   with two scatters.
 * ``starts_to_bytes`` maps char-level piece-start flags to byte flags.
@@ -147,6 +148,22 @@ utf8_decode_block.launches = 0
 # ===========================================================================
 
 
+def _char_index(is_start: torch.Tensor) -> torch.Tensor:
+    """int32 inclusive cumsum of (B, N) bool flags along each row, minus
+    one. On a card torch scans the rows of a (B, N) tensor with B > 1 by
+    a kernel made for many short rows: ~0.5 ms for a batch of 1 MB
+    windows (H100). So windows of more than 4096 bytes are scanned as one
+    flat array, and each row's start taken off."""
+    B, N = is_start.shape
+    if B == 1 or N <= 4096:
+        return torch.cumsum(is_start, dim=1, dtype=torch.int32) - 1
+    flat = torch.cumsum(is_start.reshape(-1), dim=0,
+                        dtype=torch.int32).view(B, N)
+    before = torch.zeros((B, 1), dtype=torch.int32, device=flat.device)
+    before[1:] = flat[:-1, -1:]
+    return flat - (before + 1)
+
+
 def utf8_decode(data: torch.Tensor, nbytes):
     """Decode UTF-8 windows to compacted codepoints.
 
@@ -160,7 +177,7 @@ def utf8_decode(data: torch.Tensor, nbytes):
     cp_at, lead = utf8_decode_block(d)
     idx = torch.arange(N, dtype=torch.int32, device=d.device)
     is_start = (lead != 0) & (idx < nb[:, None])
-    char_of_byte = torch.cumsum(is_start, dim=1, dtype=torch.int32) - 1
+    char_of_byte = _char_index(is_start)
     n_chars = torch.where(nb > 0, torch.clamp(char_of_byte[:, -1] + 1, min=0),
                           0).to(torch.int32)
     cp, boc = compact_by_mask(
@@ -436,9 +453,15 @@ def match_lengths(cp: torch.Tensor, m, page_ids, pages, *,
                   profile: str | None = None) -> torch.Tensor:
     """Per-char match length, int32 of ``cp``'s shape, >= 1 everywhere
     (the JAX ``match_lengths_jax``). Any profile other than "cl100k",
-    "gpt2" and "nocontract" runs the llama4 logic with contractions."""
+    "gpt2" and "nocontract" runs the llama4 logic with contractions, but
+    "kimi" raises NotImplementedError: the two-level class table has no
+    Han (``bitplane.piece_starts_chars`` serves it)."""
     if profile is None:
         profile = "llama4" if contractions else "nocontract"
+    if profile == "kimi":
+        raise NotImplementedError(
+            "the char form has no Han table for the kimi profile; use "
+            "bitplane.piece_starts_chars")
     if profile == "cl100k":
         return _match_lengths_cl100k(cp, m, page_ids, pages)
     if profile == "gpt2":
@@ -662,7 +685,7 @@ def piece_starts(cp: torch.Tensor, m, page_ids, pages, *,
     """Piece-start flags, bool of ``cp``'s shape: scanner_ref.piece_starts
     as plain torch scans and shifts (the JAX ``piece_starts_jax``,
     statement for statement). Raises NotImplementedError for a profile
-    outside the four."""
+    outside the four (kimi's starts are ``bitplane.piece_starts_chars``)."""
     if profile is None:
         profile = "llama4" if contractions else "nocontract"
     if profile == "cl100k":
@@ -968,9 +991,12 @@ def compute_starts(cp: torch.Tensor, m, page_ids, pages, *,
     (``bitplane.piece_starts_chars``: its codepoint entry, or its row
     entry for N <= 4,096), a CPU tensor runs the char form
     (``piece_starts``), as the JAX package takes its bit-plane form off
-    the CPU backend only. Any other profile: ``match_lengths`` and
+    the CPU backend only. kimi (no char form): ``piece_starts_chars`` on
+    either device. Any other profile: ``match_lengths`` and
     ``chain_starts`` on either device."""
     eff = profile or ("llama4" if contractions else "nocontract")
+    if eff == "kimi":
+        return piece_starts_chars(cp, m, profile=eff)
     if eff in ("llama4", "nocontract", "cl100k", "gpt2"):
         if cp.is_cuda:
             return piece_starts_chars(cp, m, profile=eff)

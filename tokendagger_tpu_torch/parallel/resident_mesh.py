@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..resident import batch_pipeline
+from ..vocab import refuse_kimi
 from .mesh import Mesh, all_sum
 
 
@@ -67,6 +68,7 @@ def mesh_resident_pipeline(
       a multiple of 32768): the hot routes, whose u_cap overflows fold
       into the per-window overflow flag."""
     del page_ids, pages
+    refuse_kimi("mesh_resident_pipeline", profile=profile)
     if impl not in ("ascii", "general"):
         raise ValueError(f"impl must be 'ascii' or 'general', got {impl!r}")
     cc = c_cap or window

@@ -55,6 +55,7 @@ from ..hostengine import byte_pair_merge
 from ..ops.merge import merge_rows
 from ..ops.pretokenize import _cls_lookup, match_lengths, utf8_decode
 from ..unicode_tables import LC, LETTER, NUM, UC, WS, get_two_level_tables
+from ..vocab import refuse_kimi
 from .mesh import Mesh, all_gather
 
 MERGE_WIDTH = 64     # per-piece merge row width in the sharded body
@@ -239,6 +240,7 @@ class ShardedTextEncoder:
 
     def __init__(self, device_engine, mesh: Mesh, *,
                  shard_bytes: int = 1 << 17, halo: int = 1 << 14):
+        refuse_kimi("ShardedTextEncoder", profile=device_engine._profile)
         if not device_engine.stream:
             raise ValueError(
                 "ShardedTextEncoder requires a stream-capable DeviceEngine "

@@ -89,6 +89,7 @@ from .ops.pretokenize import (
 from .unicode_tables import get_two_level_tables
 from .utils import profiling
 from .utils.windows import char_align
+from .vocab import refuse_kimi
 
 STAGES = ("decode", "starts", "expand", "compact", "probe", "finalize",
           "resolve")
@@ -357,6 +358,7 @@ def run_resident(
     otherwise), ``join_mode`` is read only by the single-window pipeline
     under ``miss_mode="device"``, and any other ``miss_mode`` reports the
     probe as "barrier"."""
+    refuse_kimi("run_resident", pattern=pattern, profile=profile)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but CUDA is not available")

@@ -38,6 +38,7 @@ from .ops.compact import compact_piece_keys, finalize
 from .ops.fused import SENTINEL, caps_for
 from .ops.join import vocab_probe8
 from .utils.windows import stream_windows
+from .vocab import refuse_kimi
 
 
 @dataclass
@@ -71,6 +72,7 @@ class ResidentStream:
         device: str | torch.device = "cuda",
         tables: StreamTables | None = None,
     ):
+        refuse_kimi("ResidentStream", pattern=pattern, profile=profile)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available")

@@ -42,7 +42,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from .unicode_tables import LC, LETTER, NUM, RN, UC, WS, get_tables
+from .unicode_tables import (
+    HAN, LC, LETTER, NUM, RN, UC, WS, get_tables, kimi_classes,
+)
 
 # contraction letter ids
 _S, _T, _R, _E, _V, _M, _L, _D = range(8)
@@ -76,7 +78,10 @@ def match_lengths(
 ) -> np.ndarray:
     """Per-position match length (in chars) for the supported pattern
     profiles: "llama4" (o200k family with contraction alternates),
-    "nocontract" (Tekken), "cl100k" (GPT-4 family).
+    "nocontract" (Tekken), "cl100k" (GPT-4 family), "gpt2", and "kimi"
+    (Kimi K2: ``[\\p{Han}]+`` first, then llama4's alternatives over
+    ``kimi_classes()``, whose word classes leave out Han, with the
+    punctuation tail ``[\\r\\n]*``).
 
     cp: (n,) int32/int64 codepoints. Returns (n,) int32, all >= 1.
     """
@@ -87,7 +92,7 @@ def match_lengths(
     if profile == "gpt2":
         return _match_lengths_gpt2(cp)
     contractions = profile != "nocontract"
-    classes, _ = get_tables()
+    classes = kimi_classes() if profile == "kimi" else get_tables()[0]
     n = len(cp)
     if n == 0:
         return np.zeros(0, dtype=np.int32)
@@ -102,7 +107,7 @@ def match_lengths(
     wd = uc | lc
     p1 = ~(rn | let | num)  # [^\r\n\p{L}\p{N}]
     pu = ~(ws | let | num)  # [^\s\p{L}\p{N}]
-    rns = rn | (cp == ord("/"))
+    rns = rn if profile == "kimi" else rn | (cp == ord("/"))
     sp = cp == ord(" ")
 
     PAD = 4
@@ -224,6 +229,9 @@ def match_lengths(
         [a1_len, a2_len, a3_len, a4_len, a5_len, a6_len],
         default=a7_len,
     ).astype(np.int32)
+    if profile == "kimi":  # [\p{Han}]+ comes first
+        han = (cls & HAN) != 0
+        lens = np.where(han, _runlen(han), lens).astype(np.int32)
     return lens
 
 
@@ -491,7 +499,29 @@ def piece_starts(
         return _piece_starts_cl100k(cp)
     if profile == "gpt2":
         return _piece_starts_gpt2(cp)
+    if profile == "kimi":
+        return chain_starts(match_lengths(cp, profile="kimi"))
     raise NotImplementedError(f"no boundary-local derivation for: {profile}")
+
+
+def chain_starts(lens: np.ndarray) -> np.ndarray:
+    """Start flags of the pieces that tile from char 0 when the piece at i
+    is ``lens[i]`` chars long (all >= 1): the orbit of 0 under
+    f(i) = i + lens[i], by doubling the jump. With ``jump`` = f^(2^k), the
+    set ``s`` holds f^j(0) for every j < 2^k; once f^(2^k)(0) is past the
+    end, that is the whole orbit."""
+    n = len(lens)
+    flags = np.zeros(n, dtype=bool)
+    if n == 0:
+        return flags
+    jump = np.minimum(np.arange(n, dtype=np.int64) + lens, n)
+    jump = np.append(jump, n)  # n is absorbing
+    s = np.zeros(1, dtype=np.int64)
+    while jump[0] != n:
+        s = np.union1d(s, jump[s])
+        jump = jump[jump]
+    flags[s[s < n]] = True
+    return flags
 
 
 def _piece_starts_gpt2(cp: np.ndarray) -> np.ndarray:

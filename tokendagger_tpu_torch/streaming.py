@@ -21,31 +21,37 @@ from typing import AbstractSet, Literal
 
 import numpy as np
 
-from .unicode_tables import LC, LETTER, NUM, UC, WS, get_tables
+from .unicode_tables import LC, LETTER, NUM, UC, WS, get_tables, han_plane
 
 # lookahead slack in chars (contraction <= 3 chars + the (?!\S) peek)
 _SLACK_CHARS = 4
 
 
-def coarse_classes(cps: np.ndarray) -> np.ndarray:
+def coarse_classes(cps: np.ndarray, *, han: bool = False) -> np.ndarray:
     """Coarse class of each codepoint for run finding: 0 whitespace, 1
-    number (not a letter), 2 letter, 3 anything else."""
+    number (not a letter), 2 letter, 3 anything else; with ``han`` (the
+    kimi profile, whose ``[\\p{Han}]+`` takes a Han run of letters,
+    radicals and numerals whole) 4 for Han, so that no cut falls inside
+    a Han run."""
     classes, _ = get_tables()
-    cls = classes[cps.astype(np.int64)]
+    cps = cps.astype(np.int64)
+    cls = classes[cps]
     ws = (cls & WS) != 0
     wd = (cls & (UC | LC | LETTER)) != 0
     num = ((cls & NUM) != 0) & ~wd
-    return np.where(ws, 0, np.where(num, 1, np.where(wd, 2, 3)))
+    co = np.where(ws, 0, np.where(num, 1, np.where(wd, 2, 3)))
+    return np.where(han_plane()[cps], 4, co) if han else co
 
 
-def _safe_cut_chars(text: str) -> int:
+def _safe_cut_chars(text: str, *, han: bool = False) -> int:
     """Largest char index rs such that pretoken pieces ending <= rs cannot
     be changed by appending more text: start of the coarse class run
     touching the end, minus lookahead slack.
 
     If the examined tail is one unbroken class run the run may begin even
     earlier, so the backward search extends until a class change is found
-    (or the whole buffer turns out to be one run -> hold everything back)."""
+    (or the whole buffer turns out to be one run -> hold everything back).
+    ``han``: Han runs are runs of their own (``coarse_classes``)."""
     if not text:
         return 0
     tail_n = 8192
@@ -53,7 +59,8 @@ def _safe_cut_chars(text: str) -> int:
         tail = text[-tail_n:]
         base = len(text) - len(tail)
         co = coarse_classes(
-            np.frombuffer(tail.encode("utf-32-le"), dtype=np.uint32))
+            np.frombuffer(tail.encode("utf-32-le"), dtype=np.uint32),
+            han=han)
         diff = np.nonzero(co != co[-1])[0]
         if len(diff) == 0:
             if base == 0:
@@ -88,11 +95,13 @@ class StreamingEncoder:
         # profiles (matches bounded by class runs + <=4 chars lookahead).
         # An arbitrary pattern could match across runs, so streaming it
         # would diverge from Tokenizer.encode: refuse instead.
-        if classify_pattern(tokenizer.pattern) is None:
+        profile = classify_pattern(tokenizer.pattern)
+        if profile is None:
             raise ValueError(
                 "StreamingEncoder requires a supported pattern profile "
-                "(Llama-4/o200k, Tekken, cl100k or gpt2); use "
+                "(Llama-4/o200k, Tekken, cl100k, gpt2 or Kimi K2); use "
                 "Tokenizer.encode for arbitrary patterns")
+        self._han = profile == "kimi"
         self._tok = tokenizer
         if allowed_special == "all":
             allowed_special = set(tokenizer.special_tokens_set)
@@ -124,7 +133,7 @@ class StreamingEncoder:
             return []
         safe_end = len(text) - self._special_holdback(text)
         region = text[:safe_end]
-        rs = _safe_cut_chars(region)
+        rs = _safe_cut_chars(region, han=self._han)
         if rs <= 0:
             return []
 

@@ -73,6 +73,24 @@ GPT2_PATTERN = (
     r"|\s+"
 )
 
+# Kimi K2's pattern (``pat_str`` of moonshotai/Kimi-K2-Instruct's
+# tokenization_kimi.py,
+# https://huggingface.co/moonshotai/Kimi-K2-Instruct/blob/main/tokenization_kimi.py):
+# o200k's with a Han-run alternative first, Han taken out of both word
+# classes by class intersection, and a punctuation tail of [\r\n]* (no "/").
+KIMI_PATTERN = "|".join([
+    r"[\p{Han}]+",
+    r"[^\r\n\p{L}\p{N}]?[\p{Lu}\p{Lt}\p{Lm}\p{Lo}\p{M}&&[^\p{Han}]]*"
+    r"[\p{Ll}\p{Lm}\p{Lo}\p{M}&&[^\p{Han}]]+(?i:'s|'t|'re|'ve|'m|'ll|'d)?",
+    r"[^\r\n\p{L}\p{N}]?[\p{Lu}\p{Lt}\p{Lm}\p{Lo}\p{M}&&[^\p{Han}]]+"
+    r"[\p{Ll}\p{Lm}\p{Lo}\p{M}&&[^\p{Han}]]*(?i:'s|'t|'re|'ve|'m|'ll|'d)?",
+    r"\p{N}{1,3}",
+    r" ?[^\s\p{L}\p{N}]+[\r\n]*",
+    r"\s*[\r\n]+",
+    r"\s+(?!\S)",
+    r"\s+",
+])
+
 _CONTRACTION_GROUP = r"(?i:'s|'t|'re|'ve|'m|'ll|'d)?"
 
 
@@ -81,10 +99,13 @@ def classify_pattern(pattern: str) -> str | None:
 
     Returns "llama4" (o200k family with contraction alternates),
     "nocontract" (same family without them, e.g. Tekken), "cl100k"
-    (GPT-4 family), or None (unsupported — engines fall back to the host
-    regex split, still exact)."""
+    (GPT-4 family), "gpt2", "kimi" (Kimi K2: o200k with Han runs apart),
+    or None (unsupported — engines fall back to the host regex split,
+    still exact)."""
     if pattern == LLAMA4_PATTERN:
         return "llama4"
+    if pattern == KIMI_PATTERN:
+        return "kimi"
     if pattern == TEKKEN_PATTERN:
         return "nocontract"
     if pattern == CL100K_PATTERN:
@@ -96,6 +117,18 @@ def classify_pattern(pattern: str) -> str | None:
     if pattern.replace(_CONTRACTION_GROUP, "") == TEKKEN_PATTERN:
         return "llama4"
     return None
+
+
+def refuse_kimi(where: str, *, pattern: str | None = None,
+                profile: str | None = None) -> None:
+    """Raise NotImplementedError naming ``where`` for Kimi K2's pattern or
+    the kimi profile: the entry points whose class tables have no Han
+    (the two-level page table of the char form, the ASCII pipelines)."""
+    if profile == "kimi" or (pattern is not None
+                             and classify_pattern(pattern) == "kimi"):
+        raise NotImplementedError(
+            f"{where} does not serve the kimi profile (Kimi K2's pattern); "
+            "Tokenizer and DeviceEngine do")
 
 
 def load_tiktoken_model(path: str | Path) -> dict[bytes, int]:

@@ -9,7 +9,7 @@ surface. Backends:
   version) and decodes large id lists there with ``ops/decode.decode_ids``;
 * ``"host"`` uses the native C++ host engine (``native/``: built with g++
   at first use, its CPython extension or its ctypes library) and, without
-  a C++ toolchain or for a pattern outside the four profiles, the exact
+  a C++ toolchain or for a pattern outside the five profiles, the exact
   pure-Python ``hostengine.HostEngine``; ``host_binding`` says which;
 * ``"auto"`` weighs the device against the host engine as the JAX
   package's wrapper does: inputs under ``_DEVICE_MIN_BYTES`` stay on the
@@ -18,7 +18,7 @@ surface. Backends:
   measured dispatch time (``_device_dispatch_ms``) is under
   ``_DEVICE_HEALTHY_MS``; without one, the rest go to the device.
 
-``DeviceEngine`` serves every tokenizer: a pattern of the four profiles
+``DeviceEngine`` serves every tokenizer: a pattern of the five profiles
 with a rank for every single byte takes its stream path, any other its
 piece path (a host split, then the device BPE merge). Decoding needs
 only the rank -> bytes tables. With ``"device"`` or ``"auto"`` and no card,
@@ -196,7 +196,7 @@ class Tokenizer:
     def _get_native(self):
         """The native C++ host engine (``native/tdnative.cpp``): the
         profile scanner, the whole-piece vocab hash and the exact merge
-        over the pair table. None for a pattern outside the four profiles,
+        over the pair table. None for a pattern outside the five profiles,
         without a C++ toolchain, or for a vocabulary it cannot hold
         exactly (a token over 255 bytes)."""
         with self._native_lock:
