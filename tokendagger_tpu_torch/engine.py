@@ -69,7 +69,11 @@ Python (a whole-piece dict lookup, then ``byte_pair_merge``). Two exact
 host routes remain, both counted in ``EngineStats``: a window whose
 pieces overflow the slot capacity, and a class run longer than the
 largest window, take ``_host_advance``. The ids equal
-``HostEngine.encode_ordinary``.
+``HostEngine.encode_ordinary``. A call's id lists, each text's segments
+and specials in order, are built in one call of the CPython extension
+(``tdpy.assemble_lists``) from ints shared across calls, primed at
+construction; where the extension does not load, by ``tolist()`` and
+``extend``.
 """
 
 from __future__ import annotations
@@ -162,6 +166,10 @@ class EngineStats:
     piece_hits: int = 0            # whole-piece ranks
     piece_host_merges: int = 0     # > 256 bytes or a byte without a rank
     merge_s: float = 0.0           # staging + merge launches + reads
+    # stream path: ids returned as lists (specials included), and of those
+    # the ids taken from the extension's shared ints (tdpy assemble_lists)
+    listed_ids: int = 0
+    listed_shared: int = 0
 
     @property
     def grids(self) -> int:
@@ -221,12 +229,21 @@ class DeviceEngine:
                 self.ranks, special_tokens, device=self.device)
         self.tables = tables
         self._splicer = None  # the native splice's table: stream path only
+        # the CPython extension that builds the stream path's id lists from
+        # shared ints, primed for every id here (a cold int costs a fresh
+        # allocation inside a call); None without Python.h or a toolchain
+        self._pymod = None
         if self.stream:
             try:
                 self._splicer = native.NativeSplicer(self.ranks,
                                                      self._byte_rank)
             except RuntimeError:  # no toolchain, or a vocabulary it refuses
                 pass
+            self._pymod = native.get_pymod()
+            if self._pymod is not None:
+                self._pymod.prime_longs(max(
+                    max(self.ranks.values(), default=0),
+                    max(special_tokens.values(), default=0)) + 1)
         cpu = self.device.type == "cpu"
         self._window = CPU_WINDOW if cpu else CARD_WINDOW
         self._max_window = CPU_WINDOW if cpu else MAX_WINDOW
@@ -750,15 +767,14 @@ class DeviceEngine:
     # ==================================================================
     # Text-level encoding
     # ==================================================================
-    def _encode_segments(self, segments: list[str]) -> list[list[int]]:
-        """Ordinary-encode texts: the stream path, or on the piece path
-        every text's pieces in one ``encode_pieces`` call."""
+    def _encode_segments(self, segments: list[str]) -> list:
+        """Ordinary-encode texts: on the stream path each text's int64 id
+        array, on the piece path each text's id list (every text's pieces
+        in one ``encode_pieces`` call)."""
         if self.stream:
             with span("td.utf8"):
                 datas = [s.encode("utf-8") for s in segments]
-            flats = self.encode_streams(datas)
-            with span("td.lists"):
-                return [f.tolist() for f in flats]
+            return self.encode_streams(datas)
         pieces: list[bytes] = []
         bounds = []
         for s in segments:
@@ -771,8 +787,43 @@ class DeviceEngine:
             return [[i for ids in encoded[lo:hi] for i in ids]
                     for lo, hi in bounds]
 
+    def _id_lists(self, plans: list[list[tuple[str, int]]],
+                  encoded: list) -> list[list[int]]:
+        """Each text's ids as one list of ints, in the order of its plan:
+        ("sp", id) is a special's id, ("seg", i) the ids of ``encoded[i]``
+        (``_encode_segments``' output). On the stream path one extension
+        call (``tdpy.assemble_lists``) builds every list from shared ints;
+        where the extension did not load, each array's ``tolist()``, then
+        ``extend``, as on the piece path. Both give equal lists."""
+        with span("td.lists"):
+            if self._pymod is not None:
+                lists, shared = self._pymod.assemble_lists(
+                    [[p if kind == "sp" else encoded[p] for kind, p in plan]
+                     for plan in plans])
+                self._tally(listed_ids=sum(map(len, lists)),
+                            listed_shared=shared)
+                return lists
+            if self.stream:
+                encoded = [f.tolist() for f in encoded]
+            out = []
+            for plan in plans:
+                ids: list[int] = []
+                for kind, payload in plan:
+                    if kind == "sp":
+                        ids.append(payload)
+                    else:
+                        ids.extend(encoded[payload])
+                out.append(ids)
+            if self.stream:
+                self._tally(listed_ids=sum(map(len, out)))
+            return out
+
     def encode_ordinary_batch(self, texts: list[str]) -> list[list[int]]:
-        return self._encode_segments(list(texts))
+        encoded = self._encode_segments(list(texts))
+        if not self.stream:
+            return encoded
+        return self._id_lists([[("seg", i)] for i in range(len(encoded))],
+                              encoded)
 
     def encode_batch(
         self, texts: list[str], allowed_special: AbstractSet[str]
@@ -792,18 +843,7 @@ class DeviceEngine:
                         plan.append(("seg", len(segments)))
                         segments.append(seg_text)
                 plans.append(plan)
-        encoded = self._encode_segments(segments)
-        with span("td.lists"):
-            out = []
-            for plan in plans:
-                ids: list[int] = []
-                for kind, payload in plan:
-                    if kind == "sp":
-                        ids.append(payload)
-                    else:
-                        ids.extend(encoded[payload])
-                out.append(ids)
-        return out
+        return self._id_lists(plans, self._encode_segments(segments))
 
     def _split_specials(
         self, text: str, allowed: AbstractSet[str]

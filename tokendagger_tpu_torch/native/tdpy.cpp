@@ -1,5 +1,7 @@
 // CPython extension binding for the native engine (optional fast layer):
-// the JAX package's native/tdpy.cpp, with only its comments changed.
+// the JAX package's native/tdpy.cpp, with its id -> int loops folded into
+// one helper (id_long) and one entry point of the port's own,
+// assemble_lists, which builds the device path's result lists.
 //
 // The ctypes binding (see __init__.py) is the portable path; this module
 // removes the remaining Python-side costs for the list-returning APIs:
@@ -54,6 +56,22 @@ namespace {
 PyObject** g_longs = nullptr;
 Py_ssize_t g_nlongs = 0;
 constexpr Py_ssize_t kMaxLongCache = 1 << 22;  // 4M ids ~ 117 MB cap
+
+// Whether the table holds ``id`` (a negative id does not).
+inline bool is_shared(long long id) {
+  return (unsigned long long)id < (unsigned long long)g_nlongs;
+}
+
+// A new reference to the int ``id``: the shared object where the table
+// holds it, else a fresh int (nullptr, with the error set, if that fails).
+inline PyObject* id_long(long long id) {
+  if (is_shared(id)) {
+    PyObject* v = g_longs[id];
+    Py_INCREF(v);
+    return v;
+  }
+  return PyLong_FromLongLong(id);
+}
 
 // tdpy.prime_longs(n): ensure ids [0, n) are cached. Called under the GIL.
 PyObject* py_prime_longs(PyObject*, PyObject* args) {
@@ -186,18 +204,11 @@ PyObject* py_encode_list(PyObject*, PyObject* args) {
     return nullptr;
   }
   for (int64_t i = 0; i < count; ++i) {
-    int32_t id = out[i];
-    PyObject* v;
-    if ((uint32_t)id < (uint32_t)g_nlongs) {
-      v = g_longs[id];
-      Py_INCREF(v);
-    } else {
-      v = PyLong_FromLong(id);
-      if (!v) {
-        Py_DECREF(list);
-        PyMem_Free(out);
-        return nullptr;
-      }
+    PyObject* v = id_long(out[i]);
+    if (!v) {
+      Py_DECREF(list);
+      PyMem_Free(out);
+      return nullptr;
     }
     PyList_SET_ITEM(list, i, v);
   }
@@ -287,18 +298,11 @@ PyObject* py_encode_batch_lists(PyObject*, PyObject* args) {
     }
     const int32_t* ids = out + off[t];
     for (int64_t i = 0; i < cnt; ++i) {
-      int32_t id = ids[i];
-      PyObject* v;
-      if ((uint32_t)id < (uint32_t)g_nlongs) {
-        v = g_longs[id];
-        Py_INCREF(v);
-      } else {
-        v = PyLong_FromLong(id);
-        if (!v) {
-          Py_DECREF(list);
-          failed = true;
-          break;
-        }
+      PyObject* v = id_long(ids[i]);
+      if (!v) {
+        Py_DECREF(list);
+        failed = true;
+        break;
       }
       PyList_SET_ITEM(list, i, v);
     }
@@ -450,29 +454,15 @@ PyObject* py_encode_with_specials(PyObject*, PyObject* args) {
     int64_t w = 0;
     for (int64_t k = 0; res && k < n_items; ++k) {
       if (plan[k] < 0) {
-        int32_t id = sp_id[-1 - plan[k]];
-        PyObject* v;
-        if ((uint32_t)id < (uint32_t)g_nlongs) {
-          v = g_longs[id];
-          Py_INCREF(v);
-        } else {
-          v = PyLong_FromLong(id);
-          if (!v) { Py_CLEAR(res); break; }
-        }
+        PyObject* v = id_long(sp_id[-1 - plan[k]]);
+        if (!v) { Py_CLEAR(res); break; }
         PyList_SET_ITEM(res, w++, v);
       } else {
         const int32_t* ids = out + seg_o[plan[k]];
         int64_t cnt = counts[plan[k]];
         for (int64_t i = 0; i < cnt; ++i) {
-          int32_t id = ids[i];
-          PyObject* v;
-          if ((uint32_t)id < (uint32_t)g_nlongs) {
-            v = g_longs[id];
-            Py_INCREF(v);
-          } else {
-            v = PyLong_FromLong(id);
-            if (!v) { Py_CLEAR(res); break; }
-          }
+          PyObject* v = id_long(ids[i]);
+          if (!v) { Py_CLEAR(res); break; }
           PyList_SET_ITEM(res, w++, v);
         }
       }
@@ -494,6 +484,125 @@ PyObject* py_encode_with_specials(PyObject*, PyObject* args) {
     return nullptr;
   }
   return res;
+}
+
+// A buffer format of signed 64-bit ints in this host's byte order ('@',
+// '=' or '<' on the little-endian hosts this builds for).
+bool is_int64_format(const char* f) {
+  if (!f) return false;  // no format: unsigned bytes
+  if (*f == '@' || *f == '=' || *f == '<') ++f;
+  return (f[0] == 'q' || f[0] == 'l') && f[1] == '\0';
+}
+
+// One part of a text: a special's id, or the index of a segment's buffer.
+struct Part {
+  long long id;
+  Py_ssize_t view;  // < 0: the part is ``id``
+};
+
+// One text's list (a new reference, or nullptr with the error set). The
+// parts are read whole, from a tuple of them, before the list is
+// allocated, so nothing that an allocation may run (a collection and its
+// finalizers) can change what is filled in; ``views`` and ``plan`` are the
+// caller's scratch, and every buffer taken is released before this
+// returns.
+PyObject* assemble_one(PyObject* text, std::vector<Py_buffer>& views,
+                       std::vector<Part>& plan, long long* shared) {
+  PyObject* parts = PySequence_Tuple(text);  // immutable while read
+  if (!parts) return nullptr;
+  const Py_ssize_t n_parts = PyTuple_GET_SIZE(parts);
+  PyObject** items = &PyTuple_GET_ITEM(parts, 0);
+  views.clear();
+  plan.clear();
+  Py_ssize_t total = 0;
+  bool ok = true;
+  for (Py_ssize_t k = 0; k < n_parts && ok; ++k) {
+    if (PyLong_Check(items[k])) {
+      long long id = PyLong_AsLongLong(items[k]);
+      ok = !(id == -1 && PyErr_Occurred());
+      plan.push_back({id, -1});
+      ++total;
+      continue;
+    }
+    Py_buffer v;
+    if (PyObject_GetBuffer(items[k], &v,
+                           PyBUF_C_CONTIGUOUS | PyBUF_FORMAT) != 0) {
+      ok = false;
+      break;
+    }
+    views.push_back(v);
+    if (v.itemsize != 8 || !is_int64_format(v.format)) {
+      PyErr_Format(PyExc_TypeError,
+                   "a segment's ids must be int64, not format '%s'",
+                   v.format ? v.format : "B");
+      ok = false;
+      break;
+    }
+    plan.push_back({0, (Py_ssize_t)views.size() - 1});
+    total += v.len / 8;
+  }
+  Py_DECREF(parts);
+  PyObject* list = ok ? PyList_New(total) : nullptr;
+  Py_ssize_t w = 0;
+  long long hits = 0;
+  for (size_t k = 0; list && k < plan.size(); ++k) {
+    const long long* ids = &plan[k].id;
+    Py_ssize_t n = 1;
+    if (plan[k].view >= 0) {
+      const Py_buffer& v = views[plan[k].view];
+      ids = (const long long*)v.buf;
+      n = v.len / 8;
+    }
+    for (Py_ssize_t i = 0; i < n; ++i) {
+      hits += is_shared(ids[i]);
+      PyObject* o = id_long(ids[i]);
+      if (!o) {
+        Py_CLEAR(list);  // its unfilled slots are NULL, which it skips
+        break;
+      }
+      PyList_SET_ITEM(list, w++, o);
+    }
+  }
+  for (Py_buffer& v : views) PyBuffer_Release(&v);
+  views.clear();
+  if (!list) return nullptr;
+  PyObject_GC_UnTrack(list);  // holds only ints; see encode_list
+  *shared += hits;
+  return list;
+}
+
+// tdpy.assemble_lists(texts) -> (list[list[int]], n_shared)
+//
+// The device path's result lists in one pass. ``texts`` holds one
+// sequence of parts a text; a part is a special's id (an int) or one
+// segment's ids (a C-contiguous buffer of int64, as the engine's
+// encode_streams returns them). Each text's list is allocated once at its
+// full length and filled from the shared PyLong cache (prime_longs), a
+// fresh int for an id outside it; ``n_shared`` counts the ids the cache
+// gave. A buffer of another item type raises TypeError, one that is not
+// C-contiguous the exporter's error (ValueError for numpy). Unlike
+// tolist() and extend, no id is allocated twice, and dropping the lists
+// frees no ints the cache holds.
+PyObject* py_assemble_lists(PyObject*, PyObject* arg) {
+  PyObject* texts = PySequence_Tuple(arg);  // immutable while read
+  if (!texts) return nullptr;
+  const Py_ssize_t n_texts = PyTuple_GET_SIZE(texts);
+  PyObject* outer = PyList_New(n_texts);
+  std::vector<Py_buffer> views;
+  std::vector<Part> plan;
+  long long shared = 0;
+  for (Py_ssize_t t = 0; outer && t < n_texts; ++t) {
+    PyObject* list = assemble_one(PyTuple_GET_ITEM(texts, t), views, plan,
+                                  &shared);
+    if (!list) {
+      Py_CLEAR(outer);
+      break;
+    }
+    PyList_SET_ITEM(outer, t, list);
+  }
+  Py_DECREF(texts);
+  if (!outer) return nullptr;
+  return Py_BuildValue("(NL)", outer, shared);
 }
 
 // tdpy.decode_list(ids, offs, lens, blob, n_vocab, nthreads) -> bytes
@@ -577,6 +686,9 @@ PyMethodDef methods[] = {
     {"encode_with_specials", py_encode_with_specials, METH_VARARGS,
      "full-allowed-set encode of one text: scan + parallel segment "
      "encode + interleaved list, one call"},
+    {"assemble_lists", py_assemble_lists, METH_O,
+     "texts of special ids and int64 segment buffers -> (id lists, ids "
+     "taken from the shared cache)"},
     {nullptr, nullptr, 0, nullptr},
 };
 
