@@ -3,9 +3,7 @@
     python3 chip_smoke.py [--seed 0] [--mb 16] [--engine-mb 12]
 
 1. Builds the CUDA kernels of tokendagger_tpu_torch (one nvcc per source,
-   in parallel, with the merge kernel as it was before its redesign for
-   step 8's yardstick) and prints the card, its power limit and the
-   build time.
+   in parallel) and prints the card, its power limit and the build time.
 2. Holds each kernel of the ASCII window pipeline against its plain torch
    version on the card, at that path's shapes (8 windows of 1 MB,
    p_cap 349,568), on seeded ASCII windows plus edge cases (an empty
@@ -128,10 +126,8 @@
      times, with lengths 0 and 1 between long rows (each call must count
      one launch); each shape timed as above beside its bytes bound, its
      latency floor (the longest row's merges times one dependent L2
-     read, measured by a pointer chase), the lanes the kernel gives a row
-     and the merge kernel as it was before its redesign (one warp a row,
-     MERGE_BEFORE_CU, built beside the package's kernels; timed in turns
-     on the same inputs: "before_ms");
+     read, measured by a pointer chase) and the lanes the kernel gives a
+     row;
    * the piece path, DeviceEngine(stream=False), over 4.5 MB of
      multi-script text with seeded rare identifiers, with vocab_fastpath
      True and False (every unique multi-byte piece merges on the card) and
@@ -193,8 +189,7 @@
    * ``sharded_encode_step`` and ``sharded_encode_step_2d`` at (1, 1) on
      262,144 rows of 64 B of the engine text's pretokens: every row's
      tokens equal ``byte_pair_encode``, both counters the totals; the
-     merge kernel held against its plain loop on those rows and timed
-     (beside the kernel before its redesign, as in step 8);
+     merge kernel held against its plain loop on those rows and timed;
    * ``ShardedTextEncoder`` (128 KB shards, 16 KB halo) over 16 MB of
      multi-script text: ids equal to the native host engine's, no
      fallback; prints passes, the wall rate, the audit's time and the
@@ -983,8 +978,7 @@ def check_engine_kernels(seed: int, dev) -> list[dict]:
 
 SHAPE_KEYS = ("ms", "call_ms", "plain_ms", "bound_ms", "blocks_per_window",
               "library_ms", "launches_per_call", "merges",
-              "longest_row_merges", "latency_floor_ms", "before_ms",
-              "lanes_per_row")
+              "longest_row_merges", "latency_floor_ms", "lanes_per_row")
 
 
 def by_shape(times: dict) -> dict:
@@ -2341,13 +2335,12 @@ def run_kimi(seed: int, dev) -> dict:
           f"texts: {grid['grids']} grids, {bwall:.4f} s, launches "
           f"{json.dumps(blaunch)}")
     k1 = launches["piece_starts_cp"] + launches["piece_starts_rows"]
-    runs = win["windows"] - win["batched_windows"] + win["window_batches"]
-    if k1 != runs or not launches["piece_starts_cp"]:
+    # one K1 launch a batch of windows
+    if k1 != win["window_batches"] or not launches["piece_starts_cp"]:
         raise AssertionError(f"kimi: {k1} K1 launches for "
-                             f"{win['windows']} windows, "
-                             f"{win['batched_windows']} of them in "
+                             f"{win['windows']} windows in "
                              f"{win['window_batches']} batches")
-    if not win["window_batches"]:
+    if not win["windows"] > win["window_batches"]:
         raise AssertionError("kimi: no sub-documents shared a batch")
     if blaunch["piece_starts_rows"] != grid["grids"] or not grid["grids"]:
         raise AssertionError(f"kimi: {blaunch['piece_starts_rows']} K1 row "
@@ -2661,187 +2654,6 @@ MERGE_SHAPES = (("piece", 8192, 16), ("piece", 8192, 64),
 MERGE_EDGE_ROWS = (1, 9, 2048, 2049, 4097, 8192, 8193, 8257)
 MERGE_EDGE_WIDTHS = (1, 3, 16, 17, 64, 65, 100, 256)
 
-# The merge kernel as it was before its redesign (one warp a row; lanes 0
-# and 1 look up), built beside the package's kernels and timed on the same
-# inputs as the yardstick of the redesign ("before_ms").
-MERGE_BEFORE_CU = r"""
-#include <cuda_runtime.h>
-#include <stdint.h>
-namespace {
-constexpr int kWarps = 8;
-constexpr int kMaxRank = 0x7FFFFFFF;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-__device__ __forceinline__ unsigned mix(int a, int b, unsigned c1,
-                                        unsigned c2, unsigned c3,
-                                        unsigned mask) {
-  unsigned h = (unsigned)a * c1 + (unsigned)b * c2;
-  h ^= h >> 16;
-  h *= c3;
-  h ^= h >> 15;
-  return h & mask;
-}
-__device__ __forceinline__ int match(int4 ka, int4 kb, int4 va, int a,
-                                     int b) {
-  int v = -1;
-  if (ka.x == a && kb.x == b) v = max(v, va.x);
-  if (ka.y == a && kb.y == b) v = max(v, va.y);
-  if (ka.z == a && kb.z == b) v = max(v, va.z);
-  if (ka.w == a && kb.w == b) v = max(v, va.w);
-  return v;
-}
-__device__ int lookup(const int* __restrict__ rows, unsigned mask, int a,
-                      int b) {
-  if (a < 0 || b < 0) return kMaxRank;
-  const unsigned h0 = mix(a, b, 0x9E3779B1u, 0x85EBCA77u, 0x7FEB352Du, mask);
-  const unsigned h1 = mix(a, b, 0xC2B2AE3Du, 0x27D4EB2Fu, 0x165667B1u, mask);
-  const int4* r0 = reinterpret_cast<const int4*>(rows + (size_t)h0 * 12);
-  const int4* r1 = reinterpret_cast<const int4*>(rows + (size_t)h1 * 12);
-  const int4 a0 = __ldg(r0), b0 = __ldg(r0 + 1), v0 = __ldg(r0 + 2);
-  const int4 a1 = __ldg(r1), b1 = __ldg(r1 + 1), v1 = __ldg(r1 + 2);
-  const int first = match(a0, b0, v0, a, b);
-  if (first >= 0) return first;
-  const int second = match(a1, b1, v1, a, b);
-  return second >= 0 ? second : kMaxRank;
-}
-__global__ void __launch_bounds__(kWarps * 32)
-merge_rows_kernel(const uint8_t* __restrict__ bytes,
-                  const int* __restrict__ lengths, int R, int C,
-                  const int* __restrict__ byte_rank,
-                  const int* __restrict__ rows, unsigned mask,
-                  const int* __restrict__ lut, int* __restrict__ tok_out,
-                  int* __restrict__ counts) {
-  extern __shared__ int smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + warp;
-  if (row >= R) return;
-  int* tok = smem + warp * 4 * C;
-  int* pr = tok + C;
-  int* nxt = pr + C;
-  int* prv = nxt + C;
-  const uint8_t* src = bytes + row * C;
-  const int L = min(max(lengths[row], 0), C);
-  for (int c = lane; c < C; c += 32) {
-    int t = -1, r = kMaxRank;
-    if (c < L) t = byte_rank[src[c]];
-    if (c < L - 1) {
-      r = lut != nullptr ? lut[src[c] * 256 + src[c + 1]]
-                         : lookup(rows, mask, t, byte_rank[src[c + 1]]);
-    }
-    tok[c] = t;
-    pr[c] = r;
-    nxt[c] = c < L - 1 ? c + 1 : C;
-    prv[c] = (c > 0 && c < L) ? c - 1 : C;
-  }
-  __syncwarp();
-  while (L >= 2) {
-    unsigned long long best = ~0ull;
-    for (int c = lane; c < L; c += 32) {
-      const unsigned long long k =
-          ((unsigned long long)(unsigned)pr[c] << 32) | (unsigned)c;
-      best = k < best ? k : best;
-    }
-    for (int o = 16; o; o >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(kFull, best, o);
-      best = other < best ? other : best;
-    }
-    const int v = (int)(best >> 32);
-    if (v == kMaxRank) break;
-    const int b = (int)(best & 0xFFFFFFFFull);
-    const int b2 = nxt[b];
-    const int b3 = b2 < C ? nxt[b2] : C;
-    const int p = prv[b];
-    const int t3 = b3 < C ? tok[b3] : -1;
-    const int tp = p < C ? tok[p] : -1;
-    __syncwarp();
-    if (lane < 2) {
-      const int r = lookup(rows, mask, lane == 0 ? v : tp,
-                           lane == 0 ? t3 : v);
-      if (lane == 0) {
-        tok[b] = v;
-        if (b2 < C) {
-          tok[b2] = -1;
-          pr[b2] = kMaxRank;
-        }
-        nxt[b] = b3;
-        if (b3 < C) prv[b3] = b;
-        pr[b] = r;
-      } else if (p < C) {
-        pr[p] = r;
-      }
-    }
-    __syncwarp();
-  }
-  int live = 0;
-  for (int c = lane; c < C; c += 32) {
-    const int t = tok[c];
-    tok_out[row * C + c] = t;
-    live += t >= 0;
-  }
-  live = __reduce_add_sync(kFull, live);
-  if (lane == 0) counts[row] = live;
-}
-}  // namespace
-extern "C" int td_merge_rows_before(const void* bytes, const void* lengths,
-                                    int R, int C, const void* byte_rank,
-                                    const void* rows, unsigned mask,
-                                    const void* lut, void* tok, void* counts,
-                                    void* stream) {
-  if (R <= 0) return 0;
-  if (C < 1 || C > 256) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((R + kWarps - 1) / kWarps);
-  const size_t shared = (size_t)kWarps * 4 * C * sizeof(int);
-  merge_rows_kernel<<<blocks, kWarps * 32, shared, (cudaStream_t)stream>>>(
-      (const uint8_t*)bytes, (const int*)lengths, R, C,
-      (const int*)byte_rank, (const int*)rows, mask, (const int*)lut,
-      (int*)tok, (int*)counts);
-  return (int)cudaGetLastError();
-}
-"""
-
-
-def start_merge_before():
-    """Starts nvcc on MERGE_BEFORE_CU (into the package's build directory,
-    beside its kernels); returns the job for ``_build._finish``."""
-    from tokendagger_tpu_torch import _build
-
-    _build.BUILD.mkdir(parents=True, exist_ok=True)
-    src = _build.BUILD / "merge_before.cu"
-    src.write_text(MERGE_BEFORE_CU)
-    return _build._start(src, _build._nvcc(), _build.NVCC_FLAGS)
-
-
-@functools.lru_cache(maxsize=None)
-def merge_before_lib():
-    """The loaded library of MERGE_BEFORE_CU (built now if it is not)."""
-    import ctypes
-
-    from tokendagger_tpu_torch import _build
-
-    job = start_merge_before()
-    _build._finish(*job)
-    lib = ctypes.CDLL(str(job[0]))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.td_merge_rows_before.argtypes = [vp, vp, i, i, vp, vp,
-                                         ctypes.c_uint, vp, vp, vp, vp]
-    lib.td_merge_rows_before.restype = i
-    return lib
-
-
-def merge_before(by, ln, br, rows, mask: int, lut):
-    """The merge as it was before the redesign (MERGE_BEFORE_CU) on the
-    wrapper's arguments, allocating its outputs as the wrapper does."""
-    R, C = by.shape
-    tok = torch.empty((R, C), dtype=torch.int32, device=by.device)
-    cnt = torch.empty((R,), dtype=torch.int32, device=by.device)
-    rc = merge_before_lib().td_merge_rows_before(
-        by.data_ptr(), ln.data_ptr(), R, C, br.data_ptr(), rows.data_ptr(),
-        mask, None if lut is None else lut.data_ptr(), tok.data_ptr(),
-        cnt.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise AssertionError(f"the merge before its redesign: CUDA error {rc}")
-    return tok, cnt
-
-
 @functools.lru_cache(maxsize=None)
 def l2_read_ns(dev) -> float:
     """One dependent L2 read (ns), measured once by a pointer chase."""
@@ -2890,11 +2702,9 @@ def merge_cost(ln, counts, W: int, lut: bool) -> tuple[int, int, int, int]:
 
 def merge_timings(args, label: str) -> dict:
     """The merge kernel's timings (``timings``) on the wrapper's arguments
-    ``args``, with the kernel before its redesign timed in turns beside it
-    (before, kernel, kernel, before; the smaller of each pair), its bytes
-    bound, its latency floor (the longest row's merges times one dependent
-    L2 read) and the lanes it gives a row; fails unless both kernels equal
-    the plain loop."""
+    ``args``, with its bytes bound, its latency floor (the longest row's
+    merges times one dependent L2 read) and the lanes it gives a row;
+    fails unless the kernel equals the plain loop."""
     from tokendagger_tpu_torch.ops import merge as M
 
     by, ln, br, rows, mask, lut = args
@@ -2902,28 +2712,22 @@ def merge_timings(args, label: str) -> dict:
     def fn():
         return M.merge_rows(by, ln, br, rows, mask, lut)
 
-    def before():
-        return merge_before(by, ln, br, rows, mask, lut)
-
     def plain():
         return M.merge_rows_local(by, ln, br, rows, mask=mask, pair_lut=lut)
 
     R, W = by.shape
     want = plain()
-    if max_abs_err(fn(), want) or max_abs_err(before(), want):
-        raise AssertionError(f"merge {label}: a kernel differs from the "
+    if max_abs_err(fn(), want):
+        raise AssertionError(f"merge {label}: the kernel differs from the "
                              "plain loop")
     n_bytes, n_ops, n_merges, longest = merge_cost(ln, want[1], W,
                                                    lut is not None)
-    b1 = device_ms(before)
     t = timings(fn, plain, n_bytes, n_ops, plain_reps=3)
     t["ms"] = min(t["ms"], device_ms(fn))
-    t["before_ms"] = min(b1, device_ms(before))
     t.update(merges=n_merges, longest_row_merges=longest,
              latency_floor_ms=longest * l2_read_ns(by.device.type) * 1e-6,
              lanes_per_row=M.lanes_per_row(R, W))
-    print(f"merge [{label}]: {show(t)}; before the redesign "
-          f"{t['before_ms']:.4f} ms ({t['before_ms'] / t['ms']:.2f}x); "
+    print(f"merge [{label}]: {show(t)}; "
           f"{t['lanes_per_row']} lanes a row; {n_merges} merges, longest row "
           f"{longest}: latency floor {t['latency_floor_ms']:.4f} ms")
     return t
@@ -3016,8 +2820,7 @@ def check_merge_kernel(seed: int, dev, mt) -> dict:
     4 MB bucket caps, the mesh steps' and the sharded text's rows) on
     seeded rows, with and without pair_lut, and on the edge calls
     (``check_merge_edges``); times each shape as its path calls it (the
-    windows with pair_lut) beside the kernel before its redesign. Returns
-    the kernels-line row."""
+    windows with pair_lut). Returns the kernels-line row."""
     from tokendagger_tpu_torch.ops import merge as M
 
     err, times = check_merge_edges(seed, dev, mt), {}
@@ -3046,7 +2849,7 @@ def check_merge_kernel(seed: int, dev, mt) -> dict:
                          "no pallas_call)",
                 max_abs_err=err, **{k: times[head][k] for k in (
                     "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                    "latency_floor_ms", "before_ms")},
+                    "latency_floor_ms")},
                 library_ms=None, l2_read_ns=l2_read_ns(dev),
                 **by_shape(times))
 
@@ -3820,6 +3623,7 @@ def run_mesh(seed: int, mb: int, dev) -> tuple[dict, dict, dict]:
     from tokendagger_tpu_torch.resident import (
         _check_window, _hot_codepoints, _hot_pieces, batch_pipeline,
     )
+    from tokendagger_tpu_torch.splice import Splicer
     from tokendagger_tpu_torch.utils.windows import char_align, tile_windows
 
     t_phase = time.perf_counter()
@@ -3914,6 +3718,7 @@ def run_mesh(seed: int, mb: int, dev) -> tuple[dict, dict, dict]:
     host200 = Tokenizer("standin", pat_str=LLAMA4_PATTERN,
                         mergeable_ranks=r200, special_tokens={},
                         backend="host", device=dev)
+    splicer200 = Splicer(r200)
     p_cap = caps_for(WINDOW)["p_cap"]
     for impl, corp in (("ascii", corpus(9 * WINDOW, seed + 41)),
                        ("general", multiscript(9 * WINDOW, seed + 9))):
@@ -3946,7 +3751,7 @@ def run_mesh(seed: int, mb: int, dev) -> tuple[dict, dict, dict]:
         equal = all(torch.equal(a, b) for a, b in zip(out[:9], want))
         out_np = [o.cpu().numpy() for o in out]
         match = all(_check_window(tuple(o[b] for o in out_np[:9]),
-                                  win_bytes[b], host200, r200)
+                                  win_bytes[b], host200, splicer200)
                     for b in range(BATCH))
         counted = (int(out[9]) == int(out[1].sum())
                    and int(out[10]) == int(nbs.sum()))
@@ -4000,9 +3805,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t = time.perf_counter()
-    before = start_merge_before()       # in parallel with the package's
     libs = _build.build_all()
-    _build._finish(*before)
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -4073,7 +3876,7 @@ def main() -> int:
             "launches_per_call_by_shape", "blocks_per_window_by_shape",
             "merges_by_shape", "longest_row_merges_by_shape",
             "latency_floor_ms", "l2_read_ns", "latency_floor_ms_by_shape",
-            "before_ms", "before_ms_by_shape", "lanes_per_row_by_shape")
+            "lanes_per_row_by_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
 

@@ -1334,7 +1334,8 @@ def test_kimi_tokenizer_card_equals_reference(dev):
     stats = tok._device.stats
     assert stats.cut_windows >= 1 and stats.spliced_han >= 1
     assert stats.host_advance_windows == 0
-    assert (stats.batched_windows, stats.window_batches) == (3, 1)
+    # the three sub-documents in one batch; each later window alone
+    assert stats.windows - stats.window_batches == 3 - 1
     short = [han_text(rng, int(k)) for k in rng.integers(1, 1200, 40)]
     assert tok.encode_batch(short, allowed_special="all") == [
         ref.encode(t) for t in short]

@@ -67,7 +67,8 @@ def test_fused_window_equals_jax(engines, case):
     if case == "cut":
         trim = port._safe_cut_threshold(window)
         assert trim == jax_engine._safe_cut_threshold(window) > 0
-    got_ids, got_consumed = port._fused_window(window, trim)
+    # the one window executor, on a batch of one window with its trim
+    (got_ids, got_consumed), = port._run_windows([(window, trim)])
     want_ids, want_consumed = jax_engine._fused_window(window, trim)
     assert got_consumed == want_consumed
     if case == "overflow":
@@ -254,6 +255,36 @@ def test_window_modes_equal_host(miss, join):
     if miss == "device":
         assert port.stats.spliced_pieces == 1          # the 301-byte piece
         assert port._merge is not None
+
+
+@pytest.mark.parametrize("miss,join", [("device", "probe"),
+                                       ("host", "sort"), ("device", "sort")])
+def test_window_modes_batch_complete_segments(miss, join):
+    """Complete segments under a non-default miss_mode or join_mode run
+    as one batch of windows through resolve_window (the same executor as
+    the default modes) and give the host engine's ids; "device" counts
+    each merge width's rows over the whole batch."""
+    from torch_port_util import merge_vocab
+
+    ranks, specials = merge_vocab()
+    port = DeviceEngine(LLAMA4_PATTERN, ranks, specials, device="cpu")
+    host = HostEngine(LLAMA4_PATTERN, ranks, specials)
+    port.miss_mode, port.join_mode = miss, join
+    rng = np.random.default_rng(19)
+    segs = [prose_text(rng, 20000), multiscript_text(rng, 9000),
+            prose_text(rng, 5000) + " " + "q" * 300 + " end",
+            multiscript_text(rng, 12000)]
+    got = port.encode_streams([s.encode() for s in segs])
+    assert [g.tolist() for g in got] == [host.encode_ordinary(s)
+                                         for s in segs]
+    st = port.stats
+    assert (st.windows, st.window_batches) == (4, 1)
+    assert st.host_advance_windows == st.cut_windows == 0
+    if miss == "device":
+        assert st.spliced_pieces == 1          # the 301-byte piece
+        assert sum(st.merge_rows_by_width.values()) > 0
+    else:
+        assert st.spliced_pieces > 1 and not st.merge_rows_by_width
 
 
 def test_default_device_is_the_card():

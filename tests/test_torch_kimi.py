@@ -326,7 +326,7 @@ def test_device_path_equals_tiktoken(vocab, text):
     assert 0 < s.spliced_han < s.spliced_pieces
     if native.get_lib() is not None:
         assert s.spliced_native == s.spliced_pieces
-    eng.stats, eng._splicer = EngineStats(), None
+    eng.stats, eng._splicer.native = EngineStats(), None
     assert tok.encode(text, allowed_special="all") == want
     assert (eng.stats.spliced_han, eng.stats.spliced_pieces) == (
         s.spliced_han, s.spliced_pieces)
@@ -342,7 +342,7 @@ def test_sub_documents_share_batched_windows(vocab):
                        for s in range(5))
     assert tok.encode(doc, allowed_special="all") == _want(vocab, doc)
     st = tok._get_device().stats
-    assert st.windows == st.batched_windows == 5
+    assert (st.windows, st.window_batches) == (5, 1)
     assert 0 < st.spliced_han < st.spliced_pieces
 
 

@@ -253,6 +253,35 @@ def test_sharded_text_equals_jax_and_host(world4, case, D):
         assert got[0] == host.encode_ordinary(text), (case, j)
 
 
+@pytest.mark.parametrize("route", ["native", "python"])
+def test_sharded_text_splices_many_oversize_pieces(route):
+    """Words of up to 200 random letters, a third of them over the
+    sharded body's 64-byte merge rows: ShardedTextEncoder splices them
+    with its engine's ``Splicer`` (shard spans offset by the shard's
+    base), on the native route and on the Python loop, to the host
+    engine's ids, without falling back."""
+    ranks = VOCABS["tiny"]
+    eng = DeviceEngine(PATTERNS["llama4"], ranks, {}, device="cpu")
+    st = ShardedTextEncoder(eng, PM.get_mesh(1, device="cpu"),
+                            shard_bytes=2048, halo=512)
+    if route == "python":
+        eng._splicer.native = None
+    elif eng._splicer.native is None:
+        pytest.skip("no C++ toolchain for tdnative.cpp")
+    rng = np.random.default_rng(14)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    text = "".join(" " + rng.choice(letters, int(k)).tobytes().decode()
+                   for k in rng.integers(2, 200, 120))
+    data = text.encode()
+    wide = st.pass_outputs(data[:2048], final=len(data) <= 2048)["n_wide"]
+    assert wide[0] >= 5
+    got, passes, fallbacks = _encode_counted(st, data)
+    assert got == HostEngine(PATTERNS["llama4"], ranks, {}).encode_ordinary(
+        text)
+    assert passes >= 2 and fallbacks == 0
+    assert (eng._splicer.native is not None) == (route == "native")
+
+
 def _jax_pass(st, data: bytes, final: bool):
     """The JAX encoder's per-shard outputs of one pass: the inputs as its
     ``_one_pass`` builds them."""

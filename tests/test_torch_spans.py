@@ -88,6 +88,31 @@ def test_a_traced_encode_nests_its_spans_on_one_thread(tmp_path):
         assert not any(_inside(d, w) for w in windows)
 
 
+def test_a_lone_segment_and_a_batch_each_run_one_window_section(tmp_path):
+    """One complete segment alone and the same segment among three run
+    through the one window executor: one ``td.window`` each call (a batch
+    of one, then of three), equal ids, and the host engine's."""
+    ranks, specials = make_tiny_vocab()
+    eng = DeviceEngine(LLAMA4_PATTERN, ranks, specials, device="cpu")
+    host = HostEngine(LLAMA4_PATTERN, ranks, specials)
+    rng = np.random.default_rng(6)
+    segs = [multiscript_text(rng, 20000).encode(),
+            prose_text(rng, 30000).encode(),
+            multiscript_text(rng, 6000).encode()]
+    want = [host.encode_ordinary(s.decode()) for s in segs]
+    for call, (sub, n) in enumerate([(segs[:1], 1), (segs, 3)]):
+        w0, b0 = eng.stats.windows, eng.stats.window_batches
+        got, spans = _traced(tmp_path / str(call),
+                             lambda: eng.encode_streams(sub))
+        assert [g.tolist() for g in got] == want[:n]
+        names = [s[0] for s in spans]
+        assert names.count("td.window") == 1
+        assert names.count("td.drain") == names.count("td.copyback") == 1
+        assert (eng.stats.windows - w0, eng.stats.window_batches - b0) == (
+            n, 1)
+    assert eng.stats.spliced_pieces > 0
+
+
 def test_no_range_is_entered_without_a_profiler(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("record_function entered with no profiler")

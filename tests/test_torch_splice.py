@@ -1,9 +1,10 @@
-"""The native splice of a device window's missed pieces (``td_splice``
-through ``native.NativeSplicer``) on the CPU, under the cl100k and o200k
-patterns: the same ids as ``DeviceEngine``'s Python loop and as
-``HostEngine.encode_ordinary`` on windows and grid rows, its counters, a
-mismatched miss count, and the Python route where the native table is
-missing or refused."""
+"""The splice of a device window's missed pieces (``splice.Splicer``) on
+the CPU, under the cl100k and o200k patterns: its native route
+(``td_splice`` through ``native.NativeSplicer``) gives the same ids as its
+Python loop and as ``HostEngine.encode_ordinary`` on windows and grid
+rows, with the same counters; a mismatched miss count raises on both
+routes, and the Python route serves where the native table is missing,
+refused, or meets a byte without a rank."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ from conftest import make_tiny_vocab
 from tokendagger_tpu_torch import LLAMA4_PATTERN, DeviceEngine, HostEngine
 from tokendagger_tpu_torch import native
 from tokendagger_tpu_torch.ops.fused import SENTINEL
+from tokendagger_tpu_torch.splice import Splicer
 from tokendagger_tpu_torch.vocab import CL100K_PATTERN
 
 # o200k's pat_str is the port's llama4 profile
@@ -97,7 +99,7 @@ def setup(request):
     pat = PATTERNS[request.param]
     nat = DeviceEngine(pat, ranks, specials, device="cpu")
     py = DeviceEngine(pat, ranks, specials, device="cpu")
-    py._splicer = None
+    py._splicer.native = None
     return nat, py, HostEngine(pat, ranks, specials)
 
 
@@ -113,7 +115,8 @@ def _fresh(setup):
 @needs_native
 def test_the_engine_has_the_native_table_and_no_pair_table(setup):
     nat, _, _ = setup
-    assert isinstance(nat._splicer, native.NativeSplicer)
+    assert isinstance(nat._splicer, Splicer)
+    assert isinstance(nat._splicer.native, native.NativeSplicer)
     assert nat._merge is None
 
 
@@ -124,8 +127,8 @@ def test_windows_equal_the_python_loop_and_the_host(setup, seed, threads):
     """Windows of over a thousand misses each: on one thread, and on four
     (each with its own memo)."""
     nat, py, host = _fresh(setup)
-    nat._splicer = native.NativeSplicer(nat.ranks, nat._byte_rank)
-    nat._splicer.threads = threads
+    nat._splicer.native = native.NativeSplicer(nat.ranks, nat._byte_rank)
+    nat._splicer.native.threads = threads
     rng = np.random.default_rng(seed)
     text = code_text(rng, 150_000)           # three CPU windows and more
     want = host.encode_ordinary(text)
@@ -189,7 +192,7 @@ def test_grid_rows_equal_the_python_loop_and_the_host(setup):
 def test_a_miss_count_that_disagrees_raises(setup, route, sentinels):
     nat, py, _ = setup
     eng = nat if route == "native" else py
-    if route == "native" and eng._splicer is None:
+    if route == "native" and eng._splicer.native is None:
         pytest.skip("no C++ toolchain for tdnative.cpp")
     ids = np.array([5, SENTINEL, 7] + [SENTINEL] * (sentinels - 1) + [9],
                    dtype=np.int64)
@@ -197,14 +200,16 @@ def test_a_miss_count_that_disagrees_raises(setup, route, sentinels):
     starts = np.array([0, 2, 4], dtype=np.int32)
     lens = np.array([2, 2, 2], dtype=np.int32)
     with pytest.raises(RuntimeError, match="SENTINEL slots for 2 missed"):
-        eng._splice_oversize(ids, window, starts, lens, 2)
+        eng._splicer.splice(ids, window, starts, lens, 2)
+    if route == "native":                    # the route stays native
+        assert eng._splicer.native is not None
 
 
 def test_without_a_toolchain_the_python_loop_splices(monkeypatch):
     monkeypatch.setattr(native, "get_lib", lambda: None)
     ranks, specials = code_vocab()
     eng = DeviceEngine(CL100K_PATTERN, ranks, specials, device="cpu")
-    assert eng._splicer is None
+    assert eng._splicer.native is None
     text = code_text(np.random.default_rng(8), 20_000)
     assert eng.encode_stream(text.encode()).tolist() == HostEngine(
         CL100K_PATTERN, ranks, specials).encode_ordinary(text)
@@ -217,7 +222,7 @@ def test_a_refused_vocabulary_keeps_the_python_route():
     ranks, specials = code_vocab()
     ranks[b"q" * 300] = 9000                 # a token over 255 bytes
     eng = DeviceEngine(LLAMA4_PATTERN, ranks, specials, device="cpu")
-    assert eng._splicer is None
+    assert eng._splicer.native is None
     text = f"x = {'q' * 300} y = {'q' * 301}" + code_text(
         np.random.default_rng(9), 5_000)
     assert eng.encode_stream(text.encode()).tolist() == HostEngine(
@@ -228,16 +233,16 @@ def test_a_refused_vocabulary_keeps_the_python_route():
 
 @needs_native
 def test_a_byte_without_a_rank_falls_back_to_python():
-    """A table that meets a byte without a rank reports it (None); the
-    engine drops the table and splices that window and the rest in
-    Python, exactly."""
+    """A table that meets a byte without a rank reports it
+    (``SPLICE_RANKLESS``); the Splicer drops the table and splices that
+    window and the rest in Python, exactly."""
     ranks, specials = code_vocab()
     eng = DeviceEngine(CL100K_PATTERN, ranks, specials, device="cpu")
     holed = eng._byte_rank.copy()
     holed[ord("a")] = -1
-    eng._splicer = native.NativeSplicer(ranks, holed)
+    eng._splicer.native = native.NativeSplicer(ranks, holed)
     text = code_text(np.random.default_rng(10), 20_000)
     assert eng.encode_stream(text.encode()).tolist() == HostEngine(
         CL100K_PATTERN, ranks, specials).encode_ordinary(text)
-    assert eng._splicer is None
+    assert eng._splicer.native is None
     assert eng.stats.spliced_native == 0 < eng.stats.spliced_pieces

@@ -56,6 +56,42 @@ def test_stream_equals_jax_and_host():
     assert st.bytes_total == len(corpus)
 
 
+def _missing_words(rng, n: int) -> bytes:
+    """n bytes of ASCII words of 2-200 random letters: the tiny vocabulary
+    holds almost none of them, and many are over 64 bytes."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    parts, size = [], 0
+    while size < n:
+        k = int(rng.integers(2, 200 if rng.random() < 0.2 else 12))
+        parts.append(b" " + rng.choice(letters, k).tobytes())
+        size += k + 1
+    return b"".join(parts)[:n]
+
+
+@pytest.mark.parametrize("route", ["native", "python"])
+def test_stream_splices_many_misses_through_both_routes(route):
+    """ASCII windows whose pieces the tiny vocabulary mostly misses:
+    ResidentStream's ``Splicer`` gives the host engine's ids, window for
+    window, on its native route and on its Python loop."""
+    ranks, specials = make_tiny_vocab()
+    corpus = _missing_words(np.random.default_rng(12), 2 * W + 3000)
+    port = ResidentStream(ranks, specials, LLAMA4_PATTERN, window=W, batch=2,
+                          device="cpu")
+    if route == "python":
+        port._splicer.native = None
+    elif port._splicer.native is None:
+        pytest.skip("no C++ toolchain for tdnative.cpp")
+    got, st = port.encode(corpus)
+    wins = stream_windows(corpus, W)
+    assert len(got) == len(wins) == 3
+    for i, w in enumerate(wins):
+        oracle = port.host.encode_ordinary(w.tobytes().decode("utf-8"))
+        assert got[i] == oracle, f"window {i}"
+    assert st.host_fallback_windows == 0
+    assert st.spliced_pieces > 2000
+    assert (port._splicer.native is not None) == (route == "native")
+
+
 def test_stream_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")

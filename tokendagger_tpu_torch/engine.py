@@ -53,19 +53,19 @@ range a stage and ``td.window.read``; ``td.drain`` with ``td.copyback`` and
 ``td.splice``; ``td.safe_cut``, ``td.grid``, ``td.merge``,
 ``td.host_advance``, ``td.specials``, ``td.utf8`` and ``td.lists``.
 
-Segments that each fit one window (the spans between a document's
-special tokens) share launches: two or more of one call run as a (B, N)
-batch of windows (``_encode_windows_batched``), so that K1's ~165 passes,
-which cost a window the same whatever it holds, are paid once a batch.
+Every window runs through one executor, ``_run_windows``: (window,
+trim) pairs staged as (B, N) batches, one ``td.window`` section a batch.
+A call's segments that each fit one window (the spans between a
+document's special tokens) run as one batch of up to ``BATCH_WINDOWS``,
+so that K1's ~165 passes, which cost a window the same whatever it holds,
+are paid once a batch; a longer segment's windows run one at a time.
 
 A window is cut at a *safe* offset (``_safe_cut_threshold``): pieces that
 end before the start of the character-class run touching the window's end
 (minus lookahead slack) cannot change with the bytes after it; the rest is
 scanned again in the next window. Misses splice exactly on the host, a
-window's or a grid row's in one native call (``native.NativeSplicer``:
-the whole-piece hash, the thread's memo, then the exact merge; from
-1,024 misses on, on up to 8 threads), or without a C++ toolchain in
-Python (a whole-piece dict lookup, then ``byte_pair_merge``). Two exact
+window's or a grid row's in one call of ``splice.Splicer`` (native
+``td_splice``; its plain version in Python without a C++ toolchain). Two exact
 host routes remain, both counted in ``EngineStats``: a window whose
 pieces overflow the slot capacity, and a class run longer than the
 largest window, take ``_host_advance``. The ids equal
@@ -95,13 +95,13 @@ from .hostengine import HostEngine, byte_pair_merge
 from .ops.batched import ROW_WIDTHS, grid_rows, resolve_grid
 from .ops.bitplane import piece_starts_chars
 from .ops.compact import compact_piece_keys
-from .ops.fused import SENTINEL, caps_for, finalize_host, resolve_window
+from .ops.fused import caps_for, finalize_host, resolve_window
 from .ops.join import vocab_probe8
 from .ops.merge import merge_rows
 from .ops.pretokenize import starts_to_bytes, utf8_decode
+from .splice import Splicer
 from .streaming import _safe_cut_chars, coarse_classes
 from .tables import all_reachable
-from .unicode_tables import han_plane
 from .utils.profiling import span
 from .vocab import classify_pattern
 
@@ -120,8 +120,8 @@ CUT_SLACK = 16
 CARD_WINDOW = SCAN_SIZES[3]
 CPU_WINDOW = SCAN_SIZES[1]
 
-# Complete segments of one call share the window stages: at most this
-# many windows a batch, and at most BATCH_BYTES of (padded) shape.
+# Windows share the window stages: at most this many windows a batch, and
+# at most BATCH_BYTES of (padded) shape.
 BATCH_WINDOWS = 8
 BATCH_BYTES = 1 << 23
 
@@ -137,9 +137,7 @@ class EngineStats:
     """Counters and a host-clock split of the engine's work."""
 
     windows: int = 0               # device windows run
-    # of those, run by _encode_windows_batched, and its batches
-    batched_windows: int = 0
-    window_batches: int = 0
+    window_batches: int = 0        # their (B, N) batches
     cut_windows: int = 0           # windows ended at a safe cut
     grown_windows: int = 0         # windows retried larger (no safe cut)
     host_advance_windows: int = 0  # overflow / over-long runs, host-encoded
@@ -228,17 +226,13 @@ class DeviceEngine:
             tables = engine_tables_from_ranks(
                 self.ranks, special_tokens, device=self.device)
         self.tables = tables
-        self._splicer = None  # the native splice's table: stream path only
+        # the splice of the device's misses: stream path only
+        self._splicer = Splicer(self.ranks) if stream else None
         # the CPython extension that builds the stream path's id lists from
         # shared ints, primed for every id here (a cold int costs a fresh
         # allocation inside a call); None without Python.h or a toolchain
         self._pymod = None
         if self.stream:
-            try:
-                self._splicer = native.NativeSplicer(self.ranks,
-                                                     self._byte_rank)
-            except RuntimeError:  # no toolchain, or a vocabulary it refuses
-                pass
             self._pymod = native.get_pymod()
             if self._pymod is not None:
                 self._pymod.prime_longs(max(
@@ -365,12 +359,12 @@ class DeviceEngine:
                         len(prefix.encode("utf-8")))
 
     def window_pipeline(self, data: torch.Tensor, nbytes: torch.Tensor,
-                        trim: int, rows_out: dict | None = None):
-        """The device stages on one staged window: (1, N) uint8 and (1,)
-        int32 length on the engine's device. Returns ``finalize_host``'s
-        9-tuple, or ``resolve_window``'s under a non-default ``miss_mode``
-        or ``join_mode`` (which fills ``rows_out`` with its merge rows by
-        width)."""
+                        trim: torch.Tensor, rows_out: dict | None = None):
+        """The device stages on a staged batch of windows: (B, N) uint8,
+        (B,) int32 lengths and (B,) int32 trims on the engine's device.
+        Returns ``finalize_host``'s 9-tuple, or ``resolve_window``'s under
+        a non-default ``miss_mode`` or ``join_mode`` (which fills
+        ``rows_out`` with each window's merge rows by width)."""
         N = data.shape[1]
         p_cap = caps_for(N)["p_cap"]
         resolve = self.miss_mode != "host" or self.join_mode != "probe"
@@ -402,104 +396,97 @@ class DeviceEngine:
         with span("td.window.finalize"):
             return finalize_host(sb, pl, rank, npc, trim, p_cap=p_cap)
 
-    def _fused_window(self, window: bytes, trim: int):
-        """Run the device stages on one window. Returns (flat ids | None on
-        capacity overflow, consumed_bytes)."""
-        # td.drain opens under the lock (the copy-back) and closes after the
-        # splice, which runs outside it; closing a span never opened does
-        # nothing
-        drain = span("td.drain")
-        try:
-            with self._lock:
-                with span("td.window"):
-                    t = time.perf_counter()
-                    with span("td.window.stage"):
-                        n = len(window)
-                        N = next(s for s in SCAN_SIZES if s >= n)
-                        buf = np.zeros((1, N), dtype=np.uint8)
-                        buf[0, :n] = np.frombuffer(window, dtype=np.uint8)
-                        data = torch.from_numpy(buf).to(self.device)
-                        nb = torch.tensor([n], dtype=torch.int32,
-                                          device=self.device)
-                    rows: dict = {}
-                    (flat, total, _np, _nk, consumed, overflow, ms_s, ms_l,
-                     n_ms) = self.window_pipeline(data, nb, trim, rows)
-                    with span("td.window.read"):
-                        # the one synchronizing read of the window's scalars
-                        ovf, total_i, n_ms_i, consumed_i, *n_rows = (
-                            torch.stack(
-                                [overflow.to(torch.int32), total, n_ms,
-                                 consumed]
-                                + [rows[w].to(torch.int32)
-                                   for w in sorted(rows)],
-                                dim=1)[0].tolist())
-                    t2 = time.perf_counter()
-                if ovf:
-                    self._tally(windows=1, device_s=t2 - t)
-                    return None, 0
-                drain.__enter__()
-                with span("td.copyback"):
-                    ids = flat[0, :total_i].cpu().numpy().astype(np.int64)
-                    os_s = ms_s[0, :n_ms_i].cpu().numpy()
-                    os_l = ms_l[0, :n_ms_i].cpu().numpy()
-            if n_ms_i:
-                with span("td.splice"):
-                    ids = self._splice_oversize(ids, window, os_s, os_l,
-                                                n_ms_i)
-            self._tally(windows=1, device_s=t2 - t,
-                        drain_s=time.perf_counter() - t2,
-                        merge_rows_by_width=dict(zip(sorted(rows), n_rows)))
-        finally:
-            drain.__exit__(None, None, None)
-        return ids, consumed_i
+    def _run_windows(self, items: list[tuple[bytes, int]]
+                     ) -> list[tuple[np.ndarray | None, int]]:
+        """Run the device stages on (window, trim) pairs: for each, in
+        order, (flat ids | None on capacity overflow, consumed bytes).
+        They run as (B, N) batches, the longest first, N the smallest of
+        ``SCAN_SIZES`` that holds a batch's longest, at most
+        ``BATCH_WINDOWS`` windows and ``BATCH_BYTES`` of shape a batch. A
+        batch runs the window stages once (K1's codepoint entry on B
+        windows in one launch), so a call's card time follows its bytes
+        and not the count of its windows."""
+        order = sorted(range(len(items)), key=lambda i: -len(items[i][0]))
+        out: list[tuple[np.ndarray | None, int]] = [(None, 0)] * len(items)
+        lo = 0
+        while lo < len(order):
+            N = next(s for s in SCAN_SIZES if s >= len(items[order[lo]][0]))
+            batch = order[lo : lo + max(1, min(BATCH_WINDOWS,
+                                               BATCH_BYTES // N))]
+            lo += len(batch)
+            wins = [items[i][0] for i in batch]
+            B = len(batch)
+            # td.drain opens under the lock (the copy-back) and closes after
+            # the splices, which run outside it; closing a span never opened
+            # does nothing
+            drain = span("td.drain")
+            try:
+                with self._lock:
+                    with span("td.window"):
+                        t = time.perf_counter()
+                        with span("td.window.stage"):
+                            # zeros on the device, then each window's bytes,
+                            # not its padding; lengths and trims in one copy
+                            data = torch.zeros((B, N), dtype=torch.uint8,
+                                               device=self.device)
+                            for r, w in enumerate(wins):
+                                data[r, : len(w)] = torch.frombuffer(
+                                    bytearray(w), dtype=torch.uint8)
+                            meta = torch.from_numpy(np.asarray(
+                                [[len(w) for w in wins],
+                                 [items[i][1] for i in batch]],
+                                dtype=np.int32)).to(self.device)
+                        rows: dict = {}
+                        (flat, total, _np, _nk, consumed, overflow, ms_s,
+                         ms_l, n_ms) = self.window_pipeline(data, meta[0],
+                                                            meta[1], rows)
+                        with span("td.window.read"):
+                            # the one synchronizing read of the scalars
+                            ovf, total_r, n_ms_r, consumed_r, *n_rows = (
+                                torch.stack(
+                                    [overflow.to(torch.int32), total, n_ms,
+                                     consumed]
+                                    + [rows[w].to(torch.int32)
+                                       for w in sorted(rows)]).cpu().numpy())
+                        t2 = time.perf_counter()
+                    ok = ovf == 0
+                    drain.__enter__()
+                    with span("td.copyback"):
+                        k = int(total_r[ok].max()) if ok.any() else 0
+                        flat_np = flat[:, :k].cpu().numpy()
+                        kms = int(n_ms_r[ok].max()) if ok.any() else 0
+                        if kms:
+                            ms_np = torch.stack(
+                                [ms_s[:, :kms], ms_l[:, :kms]]).cpu().numpy()
+                for r, i in enumerate(batch):
+                    if not ok[r]:
+                        continue
+                    ids = flat_np[r, : total_r[r]].astype(np.int64)
+                    if n_ms_r[r]:
+                        with span("td.splice"):
+                            ids = self._splice_oversize(
+                                ids, wins[r], ms_np[0, r], ms_np[1, r],
+                                int(n_ms_r[r]))
+                    out[i] = (ids, int(consumed_r[r]))
+                self._tally(windows=B, window_batches=1, device_s=t2 - t,
+                            drain_s=time.perf_counter() - t2,
+                            merge_rows_by_width={
+                                w: int(n.sum())
+                                for w, n in zip(sorted(rows), n_rows)})
+            finally:
+                drain.__exit__(None, None, None)
+        return out
 
     def _splice_oversize(self, ids: np.ndarray, window: bytes,
                          os_s: np.ndarray, os_l: np.ndarray,
                          n_os: int) -> np.ndarray:
-        """Replace SENTINEL slots with the exact encoding of each missed
-        piece (both are in piece order), and count the pieces in
-        ``stats``. One native call (``td_splice``) where the engine has
-        its table; else, or where that call meets a byte without a rank,
-        the Python loop below. Both resolve a piece alike."""
-        splicer = self._splicer
-        if splicer is not None:
-            got = splicer.splice(ids, window, os_s, os_l, n_os, SENTINEL)
-            if got is not None:
-                out, whole, han = got
-                self._tally(spliced_pieces=n_os, spliced_whole=whole,
-                            spliced_native=n_os, spliced_han=han)
-                return out
-            self._splicer = None
-        sent_pos = np.nonzero(ids == SENTINEL)[0]
-        if len(sent_pos) != n_os:
-            raise RuntimeError(f"{len(sent_pos)} SENTINEL slots for "
-                               f"{n_os} missed pieces")
-        parts = []
-        prev = 0
-        whole = han = 0
-        is_han = han_plane()
-        for j, p in enumerate(sent_pos):
-            parts.append(ids[prev:p])
-            piece = window[int(os_s[j]) : int(os_s[j]) + int(os_l[j])]
-            first = piece[:4].decode("utf-8", "ignore")[:1]
-            if first and is_han[ord(first)]:
-                han += 1
-            # whole-piece lookup FIRST, like the oracle (hostengine
-            # encode_ordinary): a probe miss on device may be a deliberate
-            # false miss (token dropped from the device hash table), and
-            # merge(piece) == [rank] is a vocab property, not a guarantee
-            r = self.ranks.get(piece)
-            if r is not None:
-                whole += 1
-            parts.append(np.asarray(
-                [r] if r is not None else byte_pair_merge(piece, self.ranks),
-                dtype=ids.dtype,
-            ))
-            prev = p + 1
-        parts.append(ids[prev:])
+        """Replace SENTINEL slots with the exact ids of each missed piece
+        (``splice.Splicer``), and count the pieces in ``stats``."""
+        ids, whole, han, nat = self._splicer.splice(ids, window, os_s, os_l,
+                                                    n_os)
         self._tally(spliced_pieces=n_os, spliced_whole=whole,
-                    spliced_han=han)
-        return np.concatenate(parts)
+                    spliced_native=n_os if nat else 0, spliced_han=han)
+        return ids
 
     def encode_stream(self, data: bytes) -> np.ndarray:
         """Ordinary-encode one byte segment through the windowed device
@@ -521,7 +508,7 @@ class DeviceEngine:
                     self._tally(safe_cut_s=time.perf_counter() - t)
             result = (None, 0)
             if trim > 0:
-                result = self._fused_window(window, trim)
+                result = self._run_windows([(window, trim)])[0]
                 if result[0] is None:
                     # capacity overflow (pathological piece mix): exact
                     # host route for a bounded prefix, then resume
@@ -557,10 +544,10 @@ class DeviceEngine:
     def encode_streams(self, segments: list[bytes]) -> list[np.ndarray]:
         """Ordinary-encode each byte segment. With four or more non-empty
         segments of at most ``ROW_WIDTHS[-1]`` bytes, those go through
-        (rows, width) grids (``_encode_small_batched``); two or more of
-        the rest that each fit one window share batched windows
-        (``_encode_windows_batched``); every other segment, and a batched
-        one whose window overflowed, takes ``encode_stream``."""
+        (rows, width) grids (``_encode_small_batched``); the rest that
+        each fit one window run as batches of windows (``_run_windows``);
+        every other segment, and one whose window overflowed, takes
+        ``encode_stream``."""
         self._need_stream()
         out: list[np.ndarray | None] = [None] * len(segments)
         small: list[tuple[int, bytes]] = []
@@ -571,82 +558,19 @@ class DeviceEngine:
                 small.append((i, s))
         if len(small) >= 4:  # grids pay off only with several rows
             self._encode_small_batched(small, out)
-        whole = [(i, s) for i, s in enumerate(segments)
+        whole = [i for i, s in enumerate(segments)
                  if out[i] is None and len(s) <= self._window]
-        if (len(whole) >= 2 and self.miss_mode == "host"
-                and self.join_mode == "probe"):
-            self._encode_windows_batched(whole, out)
+        if whole:
+            # each window's trim is its length: every piece is final
+            got = self._run_windows([(segments[i], len(segments[i]))
+                                     for i in whole])
+            for i, (ids, consumed) in zip(whole, got):
+                if ids is not None and consumed == len(segments[i]):
+                    out[i] = ids
         for i, s in enumerate(segments):
             if out[i] is None:
                 out[i] = self.encode_stream(s)
         return out  # type: ignore[return-value]
-
-    def _encode_windows_batched(self, items: list[tuple[int, bytes]],
-                                out: list[np.ndarray | None]) -> None:
-        """Resolve (index, segment) pairs, each segment complete in one
-        window, as (B, N) batches of windows: the longest first, N the
-        smallest of ``SCAN_SIZES`` that holds a batch's longest, at most
-        ``BATCH_WINDOWS`` windows and ``BATCH_BYTES`` of shape a batch.
-        A batch runs the window stages once, K1's codepoint entry on B
-        windows in one launch, so a call's card time follows its bytes
-        and not the count of its segments. Each window's trim is its
-        length (every piece is final). A window that overflowed its piece
-        slots is left in ``out`` as None for ``encode_stream``."""
-        items = sorted(items, key=lambda it: -len(it[1]))
-        lo = 0
-        while lo < len(items):
-            N = next(s for s in SCAN_SIZES if s >= len(items[lo][1]))
-            batch = items[lo : lo + max(1, min(BATCH_WINDOWS,
-                                               BATCH_BYTES // N))]
-            lo += len(batch)
-            B = len(batch)
-            drain = span("td.drain")
-            try:
-                with self._lock:
-                    with span("td.window"):
-                        t = time.perf_counter()
-                        with span("td.window.stage"):
-                            # copy each window's bytes, not its padding
-                            data = torch.zeros((B, N), dtype=torch.uint8,
-                                               device=self.device)
-                            for r, (_, s) in enumerate(batch):
-                                data[r, : len(s)] = torch.frombuffer(
-                                    bytearray(s), dtype=torch.uint8)
-                            lens = np.asarray([len(s) for _, s in batch],
-                                              dtype=np.int32)
-                            nb = torch.from_numpy(lens).to(self.device)
-                        (flat, total, _np, _nk, consumed, overflow, ms_s,
-                         ms_l, n_ms) = self.window_pipeline(data, nb, nb)
-                        with span("td.window.read"):
-                            # the one synchronizing read of the scalars
-                            ovf, total_r, n_ms_r, consumed_r = (
-                                torch.stack([overflow.to(torch.int32), total,
-                                             n_ms, consumed]).cpu().numpy())
-                        t2 = time.perf_counter()
-                    ok = (ovf == 0) & (consumed_r == lens)
-                    drain.__enter__()
-                    with span("td.copyback"):
-                        k = int(total_r[ok].max()) if ok.any() else 0
-                        flat_np = flat[:, :k].cpu().numpy()
-                        kms = int(n_ms_r[ok].max()) if ok.any() else 0
-                        if kms:
-                            ms_np = torch.stack(
-                                [ms_s[:, :kms], ms_l[:, :kms]]).cpu().numpy()
-                for r, (i, s) in enumerate(batch):
-                    if not ok[r]:
-                        continue
-                    ids = flat_np[r, : total_r[r]].astype(np.int64)
-                    if n_ms_r[r]:
-                        with span("td.splice"):
-                            ids = self._splice_oversize(
-                                ids, s, ms_np[0, r], ms_np[1, r],
-                                int(n_ms_r[r]))
-                    out[i] = ids
-                self._tally(windows=B, batched_windows=B, window_batches=1,
-                            device_s=t2 - t,
-                            drain_s=time.perf_counter() - t2)
-            finally:
-                drain.__exit__(None, None, None)
 
     def _encode_small_batched(self, items: list[tuple[int, bytes]],
                               out: list[np.ndarray | None]) -> None:

@@ -442,6 +442,11 @@ class NativeEngine:
         ]
 
 
+# td_splice's codes for a splice it leaves to the plain route
+SPLICE_RANKLESS = -2
+SPLICE_MISCOUNT = -3
+
+
 class NativeSplicer:
     """The native splice of a device window's missed pieces (``td_splice``)
     over a vocab-only engine: the whole-piece hash and the byte-pair LUT,
@@ -479,9 +484,10 @@ class NativeSplicer:
         """(ids with each ``sentinel`` replaced by the ids of its miss,
         the misses found whole in the vocab, the misses whose first char
         is Han): ``ids`` int64 in piece order, miss j the piece
-        ``data[ms_s[j] : ms_s[j] + ms_l[j]]``.
-        None where a byte has no rank (the caller splices in Python);
-        RuntimeError where the sentinels are not ``n_ms``."""
+        ``data[ms_s[j] : ms_s[j] + ms_l[j]]``. Where it cannot splice
+        natively, the code: ``SPLICE_RANKLESS`` (a byte has no rank) or
+        ``SPLICE_MISCOUNT`` (the sentinels are not ``n_ms``), for the
+        caller's plain route (``splice.Splicer``)."""
         ids = np.ascontiguousarray(ids, dtype=np.int64)
         ms_s = np.ascontiguousarray(ms_s[:n_ms], dtype=np.int32)
         ms_l = np.ascontiguousarray(ms_l[:n_ms], dtype=np.int32)
@@ -494,12 +500,8 @@ class NativeSplicer:
             ms_s.ctypes.data, ms_l.ctypes.data, n_ms, sentinel,
             out.ctypes.data, len(out), ctypes.byref(whole),
             ctypes.byref(han), self.threads)
-        if cnt == -2:
-            return None
-        if cnt == -3:
-            raise RuntimeError(
-                f"{int(np.count_nonzero(ids == sentinel))} SENTINEL slots "
-                f"for {n_ms} missed pieces")
+        if cnt in (SPLICE_RANKLESS, SPLICE_MISCOUNT):
+            return int(cnt)
         if cnt < 0:
             raise RuntimeError(f"td_splice error {cnt}")
         return out[:cnt], whole.value, han.value

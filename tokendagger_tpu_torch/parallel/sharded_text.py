@@ -32,10 +32,10 @@ Exactness guards (as the JAX package's):
   buffer's end (minus ``CUT_SLACK``) unless the buffer ends at the true
   end of the text.
 * **Oversize pieces** (wider than ``MERGE_WIDTH``) take the ``SENTINEL``
-  id in the flat stream plus their (start, len); the host splices in
-  ``byte_pair_merge``. Only more than ``OVERSIZE_CAP`` of them in one
-  shard overflow.
-* The merge is merge-only (no whole-piece lookup), which equals
+  id in the flat stream plus their (start, len); the host splices them
+  with the engine's ``splice.Splicer`` (a whole-piece lookup, then the
+  merge). Only more than ``OVERSIZE_CAP`` of them in one shard overflow.
+* The device merge is merge-only (no whole-piece lookup), which equals
   tiktoken's lookup-then-merge only for a merge-reachable vocabulary, so
   the encoder requires one (``DeviceEngine.all_reachable``).
 
@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..engine import CUT_SLACK
-from ..hostengine import byte_pair_merge
+from ..ops.fused import SENTINEL
 from ..ops.merge import merge_rows
 from ..ops.pretokenize import _cls_lookup, match_lengths, utf8_decode
 from ..unicode_tables import LC, LETTER, NUM, UC, WS, get_two_level_tables
@@ -60,7 +60,6 @@ from .mesh import Mesh, all_gather
 
 MERGE_WIDTH = 64     # per-piece merge row width in the sharded body
 OVERSIZE_CAP = 256   # max host-spliced oversize pieces per shard per pass
-SENTINEL = np.int32(2**31 - 2)  # flat-stream marker for an oversize piece
 
 # the per-shard scalars of the packed pass outputs, after the flat ids
 _SCALARS = ("total", "overflow", "consumed_end")
@@ -212,7 +211,7 @@ class _Shard:
         tok, counts = merge_rows(rows_buf.contiguous(), l_merge.contiguous(),
                                  self.byte_rank, self.pair_rows, self.mask)
         counts = torch.where(wide, 1, counts)
-        tok[:, 0] = torch.where(wide, int(SENTINEL), tok[:, 0])
+        tok[:, 0] = torch.where(wide, SENTINEL, tok[:, 0])
 
         # flatten the shard's tokens
         live = tok >= 0
@@ -320,8 +319,10 @@ class ShardedTextEncoder:
         for d in range(self.D):
             sf = o["flat"][d, : o["total"][d]]
             if o["n_wide"][d]:
-                sf = self._splice_oversize(sf, data, d * W, o["os_start"][d],
-                                           o["os_len"][d], int(o["n_wide"][d]))
+                # the shard's spans, offset by its base, in the pass's bytes
+                sf = self.eng._splicer.splice(
+                    sf, data, o["os_start"][d] + d * W, o["os_len"][d],
+                    int(o["n_wide"][d]))[0]
             shard_ids.append(sf)
         ids = np.concatenate(shard_ids).astype(np.int64)
         if final:
@@ -335,27 +336,6 @@ class ShardedTextEncoder:
         if consumed <= 0:
             return None, 0
         return ids, consumed
-
-    def _splice_oversize(self, shard_flat, data, base, os_start, os_len,
-                         n_wide):
-        """Replace each SENTINEL slot with the exact sequential merge of
-        its oversize piece (sentinels and the compacted (start, len) spans
-        are both in piece order)."""
-        sent_pos = np.nonzero(shard_flat == SENTINEL)[0]
-        if len(sent_pos) != n_wide:
-            raise RuntimeError(f"{len(sent_pos)} SENTINEL slots for "
-                               f"{n_wide} oversize pieces")
-        parts = []
-        prev = 0
-        for j, p in enumerate(sent_pos):
-            parts.append(shard_flat[prev:p])
-            s0 = base + int(os_start[j])
-            piece = data[s0 : s0 + int(os_len[j])]
-            parts.append(np.asarray(byte_pair_merge(piece, self.eng.ranks),
-                                    dtype=shard_flat.dtype))
-            prev = p + 1
-        parts.append(shard_flat[prev:])
-        return np.concatenate(parts)
 
     def encode(self, data: bytes) -> np.ndarray:
         D, W = self.D, self.W

@@ -70,12 +70,12 @@ import numpy as np
 import torch
 
 from .convert import merge_tables_from_ranks, tables_from_ranks
-from .hostengine import HostEngine, byte_pair_merge
+from .hostengine import HostEngine
 from .ops import bitplane, compact, merge, pretokenize
 from .ops.bitplane import piece_starts_bits, piece_starts_chars
 from .ops.compact import compact_piece_keys, finalize
 from .ops.fused import (
-    SENTINEL, caps_for, finalize_host, finalize_host_sorted, resolve_window,
+    caps_for, finalize_host, finalize_host_sorted, resolve_window,
 )
 from .ops.join import compact_piece_keys as join_compact_piece_keys
 from .ops.join import (
@@ -86,6 +86,7 @@ from .ops.pretokenize import (
     compute_starts, expand_starts_replay, piece_starts, starts_to_bytes,
     utf8_decode, utf8_decode_ascii, utf8_decode_sorted, utf8_decode_tiles,
 )
+from .splice import Splicer
 from .unicode_tables import get_two_level_tables
 from .utils import profiling
 from .utils.windows import char_align
@@ -589,11 +590,11 @@ def run_resident(
         out = [o.cpu().numpy() for o in pipeline(*wins[0])]
         h_stk, h_nb = h_wins[0]
         host = HostEngine(pattern, ranks, specials)
-        rdict = dict(ranks)
+        splicer = Splicer(host.ranks)
         match = all(
             _check_window(tuple(o[b] for o in out),
                           h_stk[b, : int(h_nb[b])].numpy().tobytes(), host,
-                          rdict)
+                          splicer)
             for b in range(len(h_nb)))
 
     per_batch_bytes = N * max(batch, 1)
@@ -704,28 +705,14 @@ def _overlap_trial(pipeline, bufs, win_bytes, batch, n_windows, N, dev):
     }
 
 
-def _check_window(out, window_b: bytes, host: HostEngine, rdict) -> bool:
-    """One window's device ids, misses spliced as the host does them,
-    against ``host.encode_ordinary``; an overflowed window is a
-    mismatch (resident.py:790-821)."""
+def _check_window(out, window_b: bytes, host: HostEngine,
+                  splicer: Splicer) -> bool:
+    """One window's device ids, misses spliced by ``splicer``, against
+    ``host.encode_ordinary``; an overflowed window is a mismatch
+    (resident.py:790-821)."""
     if bool(out[5]):
         return False
     ids = out[0][: int(out[1])]
     if int(out[8]):
-        sp_s, sp_l = out[6].tolist(), out[7].tolist()
-        idl = ids.tolist()
-        got: list[int] = []
-        prev = 0
-        for j, p in enumerate(np.nonzero(ids == SENTINEL)[0].tolist()):
-            got.extend(idl[prev:p])
-            piece = window_b[sp_s[j] : sp_s[j] + sp_l[j]]
-            r = rdict.get(piece)
-            if r is not None:
-                got.append(r)
-            else:
-                got.extend(byte_pair_merge(piece, rdict))
-            prev = p + 1
-        got.extend(idl[prev:])
-    else:
-        got = ids.tolist()
-    return got == host.encode_ordinary(window_b.decode("utf-8"))
+        ids = splicer.splice(ids, window_b, out[6], out[7], int(out[8]))[0]
+    return ids.tolist() == host.encode_ordinary(window_b.decode("utf-8"))

@@ -12,9 +12,10 @@ windows (1 MB x 8 by default). Per batch, on the device:
 4. finalize: ``ops/compact.finalize`` writes flat ids with SENTINEL for each
    miss and compacts the miss spans (kernel K4).
 
-The host then splices each miss exactly: a whole-piece dict lookup first,
-then ``byte_pair_merge``. Non-ASCII windows and capacity overflows take the
-exact host engine; both are counted in ``StreamStats.host_fallback_windows``.
+The host then splices each miss exactly (``splice.Splicer``, built at
+construction: a whole-piece lookup first, then the merge). Non-ASCII
+windows and capacity overflows take the exact host engine; both are
+counted in ``StreamStats.host_fallback_windows``.
 The ids of every window equal ``HostEngine.encode_ordinary`` of that window.
 
 Staging on the card: each batch is written into one of two pinned host
@@ -32,11 +33,12 @@ import numpy as np
 import torch
 
 from .convert import StreamTables, tables_from_ranks
-from .hostengine import HostEngine, byte_pair_merge
+from .hostengine import HostEngine
 from .ops.bitplane import piece_starts_bits
 from .ops.compact import compact_piece_keys, finalize
-from .ops.fused import SENTINEL, caps_for
+from .ops.fused import caps_for
 from .ops.join import vocab_probe8
+from .splice import Splicer
 from .utils.windows import stream_windows
 from .vocab import refuse_kimi
 
@@ -84,7 +86,7 @@ class ResidentStream:
         self.batch = batch
         self.profile = profile
         self.host = HostEngine(pattern, ranks, specials)
-        self._rdict = self.host.ranks
+        self._splicer = Splicer(self.host.ranks)
         if tables is None:
             tables = tables_from_ranks(ranks, device=self.device)
         self.tables = tables
@@ -205,8 +207,8 @@ class ResidentStream:
                 k_ms = int(n_ms[r])
                 if k_ms:
                     stats.spliced_pieces += k_ms
-                    ids = self._splice(ids, wins[i].tobytes(),
-                                       ms_s[r], ms_l[r])
+                    ids = self._splicer.splice(ids, wins[i].tobytes(),
+                                               ms_s[r], ms_l[r], k_ms)[0]
                 out[i] = ids.tolist()
         clock["drain_s"] = time.perf_counter() - t_drain
         stats.n_batches = len(batches)
@@ -220,22 +222,3 @@ class ResidentStream:
                     w.tobytes().decode("utf-8")
                 )
         return out, stats  # type: ignore[return-value]
-
-    def _splice(self, ids: np.ndarray, window_b: bytes, sp_s, sp_l):
-        """Merge device-missed piece spans exactly (oracle order)."""
-        idl = ids.tolist()
-        spliced: list[int] = []
-        prev = 0
-        sp_s = sp_s.tolist()
-        sp_l = sp_l.tolist()
-        for j, p in enumerate(np.nonzero(ids == SENTINEL)[0].tolist()):
-            spliced.extend(idl[prev:p])
-            piece = window_b[sp_s[j] : sp_s[j] + sp_l[j]]
-            r = self._rdict.get(piece)
-            if r is not None:
-                spliced.append(r)
-            else:
-                spliced.extend(byte_pair_merge(piece, self._rdict))
-            prev = p + 1
-        spliced.extend(idl[prev:])
-        return np.asarray(spliced, dtype=ids.dtype)
