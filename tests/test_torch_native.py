@@ -132,9 +132,10 @@ def test_specials_equal(engines):
     by_id = {i: s for s, i in specials.items()}
     for t in _special_texts(4):
         data = t.encode()
-        pos, ids = port.find_specials(data)
+        pos, ids, lens = port.find_specials_l(data)
         rpos, rids = ref.find_specials(data)
         assert pos.tolist() == rpos.tolist() and ids.tolist() == rids.tolist()
+        assert lens.tolist() == [len(by_id[i].encode()) for i in ids.tolist()]
         want = [(len(t[:p].encode()), specials[name])
                 for p, name in host.find_all_specials(t, set(specials))]
         assert list(zip(pos.tolist(), ids.tolist())) == want, repr(t[:60])

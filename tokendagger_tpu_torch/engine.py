@@ -73,7 +73,9 @@ largest window, take ``_host_advance``. The ids equal
 and specials in order, are built in one call of the CPython extension
 (``tdpy.assemble_lists``) from ints shared across calls, primed at
 construction; where the extension does not load, by ``tolist()`` and
-``extend``.
+``extend``. ``encode_batch`` encodes each text to UTF-8 once and splits it
+at its specials in byte space: under the full allowed set by the native
+scan (``td_find_specials_l``) on the splicer's handle.
 """
 
 from __future__ import annotations
@@ -132,6 +134,20 @@ BUCKET_WIDTHS = (16, 64, 256)
 MERGE_ROWS = 1 << 13
 
 
+def _cut(data: bytes, matches) -> Iterator[tuple[bytes, int | None]]:
+    """(segment, None) / (b"", special_id) of ``data`` cut at ``matches``
+    ((byte offset, special id, byte length) in order): no empty segment,
+    ``data`` whole where nothing matched."""
+    prev = 0
+    for p, special_id, n in matches:
+        if prev < p:
+            yield data[prev:p], None
+        yield b"", special_id
+        prev = p + n
+    if prev < len(data):
+        yield (data[prev:] if prev else data), None
+
+
 @dataclass
 class EngineStats:
     """Counters and a host-clock split of the engine's work."""
@@ -168,6 +184,11 @@ class EngineStats:
     # the ids taken from the extension's shared ints (tdpy assemble_lists)
     listed_ids: int = 0
     listed_shared: int = 0
+    # stream path: UTF-8 bytes of the texts encode_batch split at their
+    # allowed specials, and of those the bytes the native scan split
+    # (td_find_specials_l; the rest took find_all_specials_bytes)
+    split_bytes: int = 0
+    split_native: int = 0
 
     @property
     def grids(self) -> int:
@@ -228,6 +249,16 @@ class DeviceEngine:
         self.tables = tables
         # the splice of the device's misses: stream path only
         self._splicer = Splicer(self.ranks) if stream else None
+        # the byte-space special scan of encode_batch under the full
+        # allowed set, installed on the splicer's native handle (a scan
+        # table is all it needs, so no second engine and vocabulary is
+        # built for it); None without the handle or where td_set_specials
+        # declines the set (a special over 255 bytes):
+        # find_all_specials_bytes then
+        self._sp_scan = None
+        if (stream and self._splicer.native is not None
+                and self._splicer.native.set_specials(special_tokens)):
+            self._sp_scan = self._splicer.native
         # the CPython extension that builds the stream path's id lists from
         # shared ints, primed for every id here (a cold int costs a fresh
         # allocation inside a call); None without Python.h or a toolchain
@@ -691,14 +722,13 @@ class DeviceEngine:
     # ==================================================================
     # Text-level encoding
     # ==================================================================
-    def _encode_segments(self, segments: list[str]) -> list:
-        """Ordinary-encode texts: on the stream path each text's int64 id
-        array, on the piece path each text's id list (every text's pieces
-        in one ``encode_pieces`` call)."""
+    def _encode_segments(self, segments: list) -> list:
+        """Ordinary-encode segments: on the stream path UTF-8 byte
+        segments, each one's int64 id array (``encode_streams``); on the
+        piece path texts, each one's id list (every text's pieces in one
+        ``encode_pieces`` call)."""
         if self.stream:
-            with span("td.utf8"):
-                datas = [s.encode("utf-8") for s in segments]
-            return self.encode_streams(datas)
+            return self.encode_streams(segments)
         pieces: list[bytes] = []
         bounds = []
         for s in segments:
@@ -743,31 +773,66 @@ class DeviceEngine:
             return out
 
     def encode_ordinary_batch(self, texts: list[str]) -> list[list[int]]:
-        encoded = self._encode_segments(list(texts))
         if not self.stream:
-            return encoded
-        return self._id_lists([[("seg", i)] for i in range(len(encoded))],
-                              encoded)
+            return self._encode_segments(list(texts))
+        with span("td.utf8"):
+            datas = [t.encode("utf-8") for t in texts]
+        return self._id_lists([[("seg", i)] for i in range(len(datas))],
+                              self._encode_segments(datas))
 
     def encode_batch(
         self, texts: list[str], allowed_special: AbstractSet[str]
     ) -> list[list[int]]:
-        """Full encode semantics: special-token scan on the host, every
-        text's ordinary segments encoded together on the device."""
-        segments: list[str] = []
+        """Full encode semantics: each text split at its allowed specials
+        on the host, every text's ordinary segments encoded together on
+        the device. On the stream path each text is encoded to UTF-8 once
+        and split in byte space (``_split_bytes``); the piece path splits
+        the text (``HostEngine.split_specials``)."""
+        if self.stream:
+            if texts:  # an unknown token first, as the str split raises
+                self.host.check_allowed(allowed_special)
+            with span("td.utf8"):
+                datas = [t.encode("utf-8") for t in texts]
+            splits = self._split_bytes(datas, allowed_special)
+        else:
+            splits = (self._split_specials(t, allowed_special) for t in texts)
+        segments: list = []
         plans: list[list[tuple[str, int]]] = []
-        with span("td.specials"):  # the split is lazy: consume it inside
-            for text in texts:
+        with span("td.specials"):  # the splits are lazy: consume them inside
+            for parts in splits:
                 plan: list[tuple[str, int]] = []
-                for seg_text, special_id in self._split_specials(
-                        text, allowed_special):
+                for seg, special_id in parts:
                     if special_id is not None:
                         plan.append(("sp", special_id))
                     else:
                         plan.append(("seg", len(segments)))
-                        segments.append(seg_text)
+                        segments.append(seg)
                 plans.append(plan)
         return self._id_lists(plans, self._encode_segments(segments))
+
+    def _split_bytes(
+        self, datas: list[bytes], allowed: AbstractSet[str]
+    ) -> Iterator[Iterator[tuple[bytes, int | None]]]:
+        """Each UTF-8 text of ``datas`` split at its ``allowed`` specials,
+        lazily: a text's (segment, None) / (b"", special_id) in order, as
+        ``HostEngine.split_specials`` gives them for the text, segments
+        encoded. The native scan (``_sp_scan``) finds the specials under
+        the full set, ``find_all_specials_bytes`` under a subset or
+        without it. ``allowed`` must be specials of this engine
+        (``HostEngine.check_allowed``). Counts ``split_bytes`` and
+        ``split_native``."""
+        if not allowed:
+            return (_cut(d, ()) for d in datas)
+        # the native scan holds the whole set: a subset takes Python's
+        scan = (self._sp_scan if len(allowed) == len(self.host.special_tokens)
+                else None)
+        n = sum(map(len, datas))
+        self._tally(split_bytes=n, split_native=n if scan is not None else 0)
+        if scan is None:
+            return (_cut(d, self.host.find_all_specials_bytes(d, allowed))
+                    for d in datas)
+        return (_cut(d, zip(*(a.tolist() for a in scan.find_specials_l(d))))
+                for d in datas)
 
     def _split_specials(
         self, text: str, allowed: AbstractSet[str]

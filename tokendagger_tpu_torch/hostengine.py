@@ -80,6 +80,40 @@ def byte_pair_encode(piece: bytes, ranks: dict[bytes, int]) -> list[int]:
     return byte_pair_merge(piece, ranks)
 
 
+def _find_all(text, allowed, prefixes, lengths) -> list[tuple[int, object]]:
+    """``HostEngine.find_all_specials``' scan over a ``str`` or ``bytes``
+    ``text``: (offset, special) of each non-overlapping occurrence of a
+    member of ``allowed`` (specials of ``text``'s type), leftmost first,
+    the longest at a same-position tie. ``prefixes`` are the allowed
+    specials' leading bigrams, ``lengths`` their distinct lengths,
+    longest first."""
+    positions: list[int] = []
+    for pre in prefixes:
+        p = text.find(pre)
+        while p != -1:
+            positions.append(p)
+            p = text.find(pre, p + 1)
+    if not positions:
+        return []
+    positions.sort()
+    if not isinstance(allowed, (set, frozenset, dict)):
+        allowed = set(allowed)
+    out: list[tuple[int, object]] = []
+    last_end = 0
+    prev = -1
+    for p in positions:
+        if p < last_end or p == prev:
+            continue
+        prev = p
+        for L in lengths:
+            cand = text[p : p + L]
+            if len(cand) == L and cand in allowed:
+                out.append((p, cand))
+                last_end = p + L
+                break
+    return out
+
+
 class HostEngine:
     """Sequential, exact CoreBPE-equivalent engine over Python data."""
 
@@ -106,6 +140,14 @@ class HostEngine:
         self._special_prefixes = {t[:2] for t in self.special_tokens}
         self._special_lengths = sorted(
             {len(t) for t in self.special_tokens}, reverse=True
+        )
+        # the same over the specials' UTF-8 bytes (find_all_specials_bytes)
+        self._special_bytes = {
+            t.encode("utf-8"): r for t, r in self.special_tokens.items()
+        }
+        self._special_byte_prefixes = {b[:2] for b in self._special_bytes}
+        self._special_byte_lengths = sorted(
+            {len(b) for b in self._special_bytes}, reverse=True
         )
         # canonical allow-all set: callers passing this exact object skip
         # the per-call O(|specials|) membership validation
@@ -272,51 +314,47 @@ class HostEngine:
         each candidate is resolved with one hash lookup per distinct
         special length. O(text + candidates) instead of
         O(|allowed| * text)."""
-        positions: list[int] = []
-        prefixes = (
-            self._special_prefixes
-            if len(allowed) == len(self.special_tokens)
-            else {t[:2] for t in allowed}
-        )
-        for pre in prefixes:
-            p = text.find(pre)
-            while p != -1:
-                positions.append(p)
-                p = text.find(pre, p + 1)
-        if not positions:
-            return []
-        positions.sort()
-        lengths = (
-            self._special_lengths
-            if len(allowed) == len(self.special_tokens)
-            else sorted({len(t) for t in allowed}, reverse=True)
-        )
-        if not isinstance(allowed, (set, frozenset)):
-            allowed = set(allowed)
-        out: list[tuple[int, str]] = []
-        last_end = 0
-        prev = -1
-        for p in positions:
-            if p < last_end or p == prev:
-                continue
-            prev = p
-            for L in lengths:
-                cand = text[p : p + L]
-                if len(cand) == L and cand in allowed:
-                    out.append((p, cand))
-                    last_end = p + L
-                    break
-        return out
+        if len(allowed) == len(self.special_tokens):
+            return _find_all(text, allowed, self._special_prefixes,
+                             self._special_lengths)
+        return _find_all(text, allowed, {t[:2] for t in allowed},
+                         sorted({len(t) for t in allowed}, reverse=True))
+
+    def find_all_specials_bytes(
+        self, data: bytes, allowed: AbstractSet[str]
+    ) -> list[tuple[int, int, int]]:
+        """``find_all_specials`` over UTF-8 bytes: (byte offset, special
+        id, byte length) of each occurrence, with each allowed special
+        encoded. The same selection on valid UTF-8: a special starts with
+        a lead byte, which no continuation byte equals, and at a
+        same-position tie the shorter special is a byte prefix of the
+        longer. ``allowed`` must be specials of this engine."""
+        if len(allowed) == len(self.special_tokens):
+            table = self._special_bytes
+            prefixes, lengths = (self._special_byte_prefixes,
+                                 self._special_byte_lengths)
+        else:
+            table = {t.encode("utf-8"): self.special_tokens[t]
+                     for t in allowed}
+            prefixes = {b[:2] for b in table}
+            lengths = sorted({len(b) for b in table}, reverse=True)
+        return [(p, table[b], len(b))
+                for p, b in _find_all(data, table, prefixes, lengths)]
+
+    def check_allowed(self, allowed: AbstractSet[str]) -> None:
+        """KeyError on a token of ``allowed`` that is not a special of
+        this engine (the reference throws, tiktoken.cpp:177-182)."""
+        if allowed is not self.all_specials:
+            for tok in allowed:
+                if tok not in self.special_tokens:
+                    raise KeyError(f"Unknown special token: {tok!r}")
 
     def split_specials(self, text: str, allowed: AbstractSet[str]):
         """Yield (segment_text, None) / ("", special_id) in document order,
         matching the cached-position scan semantics of the reference
         (tiktoken.cpp:130-154) via the single-pass scanner above. Raises
         KeyError on unknown allowed token."""
-        if allowed is not self.all_specials:
-            for tok in allowed:
-                if tok not in self.special_tokens:
-                    raise KeyError(f"Unknown special token: {tok!r}")
+        self.check_allowed(allowed)
         start = 0
         for pos, tok in self.find_all_specials(text, allowed):
             if start < pos:

@@ -99,8 +99,10 @@ def get_lib() -> ctypes.CDLL | None:
         lib.td_encode.argtypes = [p, p, i64, p, i64]
         lib.td_set_vocab.argtypes = [p, p, p, p, p, i64]
         lib.td_set_specials.argtypes = [p, p, p, p, p, i64]
-        lib.td_find_specials.restype = i64
-        lib.td_find_specials.argtypes = [p, p, i64, p, p, i64]
+        # engine, data, n, positions (int64*), ids (int32*), byte lengths
+        # (int32*), cap
+        lib.td_find_specials_l.restype = i64
+        lib.td_find_specials_l.argtypes = [p, p, i64, p, p, p, i64]
         lib.td_splice.restype = i64
         # engine, data, n, ids (int64*), n_ids, miss starts and lengths
         # (int32*), n_ms, sentinel, out (int64*), cap, n_whole (int64*),
@@ -200,7 +202,68 @@ def _blob_table(keys: list[bytes]):
     return blob, offs, lens
 
 
-class NativeEngine:
+class _SpecialScan:
+    """The byte-space special-token scan of a native engine handle
+    ``self._h`` (``td_set_specials``, ``td_find_specials_l``):
+    ``HostEngine.find_all_specials``' selection over the whole installed
+    set, exact on valid UTF-8 (lead and continuation bytes differ, and a
+    same-position tie's shorter token is a byte prefix of the longer)."""
+
+    _sp_ok = False
+
+    def set_specials(self, specials: dict[str, int]) -> bool:
+        """Install ``specials`` (text -> id) as the scan table. Returns
+        False when the set is empty or not installable (a token empty or
+        over 255 bytes, or 16 MB of them): the caller keeps a Python
+        scan."""
+        self._sp_ok = False
+        if not specials:
+            return False
+        keys = [s.encode("utf-8") for s in specials]
+        if any(not k or len(k) > 255 for k in keys):
+            return False
+        if sum(len(k) for k in keys) > (1 << 24):
+            return False
+        # borrowed by the C side: kept alive here
+        self._sp_blob, self._sp_offs, self._sp_lens = _blob_table(keys)
+        self._sp_ids = np.fromiter(
+            (specials[s] for s in specials), dtype=np.int32, count=len(keys)
+        )
+        self._lib.td_set_specials(
+            self._h, self._sp_blob.ctypes.data, self._sp_offs.ctypes.data,
+            self._sp_lens.ctypes.data, self._sp_ids.ctypes.data, len(keys),
+        )
+        self._sp_ok = True
+        return True
+
+    def find_specials_l(self, data: bytes):
+        """(byte_pos int64, id int32, byte length int32) arrays of every
+        installed special's occurrence in ``data``, in order. None =>
+        caller falls back (no table installed)."""
+        if not self._sp_ok:
+            return None
+        n = len(data)
+        cap = 1024
+        while True:
+            # one buffer for the three arrays (positions, then ids and
+            # lengths as int32): a short text's call pays one allocation
+            # and one pointer read
+            buf = np.empty(2 * cap, np.int64)
+            p = buf.ctypes.data
+            cnt = self._lib.td_find_specials_l(
+                self._h, data, n, p, p + 8 * cap, p + 12 * cap, cap
+            )
+            if cnt == -3:
+                return None
+            if cnt >= 0:
+                tail = buf[cap:].view(np.int32)
+                return buf[:cnt], tail[:cnt], tail[cap : cap + cnt]
+            cap *= 8  # -1: capacity overflow; worst case one match/byte
+            if cap > 8 * n + 1024:
+                cap = n + 1
+
+
+class NativeEngine(_SpecialScan):
     """Native scan+merge over one vocab. Thread-safe (stateless calls)."""
 
     # scanner profile ids (must match the C++ Profile enum)
@@ -282,33 +345,17 @@ class NativeEngine:
 
     def set_specials(self, specials: dict[str, int]) -> bool:
         """Install the native special-token scan table (the single-pass
-        byte-space scanner behind find_specials). Returns False when the
-        set is empty or not installable (the caller keeps the Python
-        scan)."""
-        self._sp_ok = False
-        if not specials:
+        byte-space scanner behind find_specials_l), on the ctypes engine and
+        on the extension's. Returns False when the set is empty or not
+        installable (the caller keeps the Python scan)."""
+        if not super().set_specials(specials):
             return False
-        keys = [s.encode("utf-8") for s in specials]
-        if any(not k or len(k) > 255 for k in keys):
-            return False
-        if sum(len(k) for k in keys) > (1 << 24):
-            return False
-        self._sp_blob, offs, lens = _blob_table(keys)
-        self._sp_offs, self._sp_lens = offs, lens
-        self._sp_ids = np.fromiter(
-            (specials[s] for s in specials), dtype=np.int32, count=len(keys)
-        )
-        self._lib.td_set_specials(
-            self._h, self._sp_blob.ctypes.data, offs.ctypes.data,
-            lens.ctypes.data, self._sp_ids.ctypes.data, len(keys),
-        )
         if self._py is not None and hasattr(self._py, "set_specials"):
             # the CPython-extension binding runs its own engine instance
             self._py.set_specials(
-                self._py_cap, self._sp_blob, offs, lens, self._sp_ids,
-                len(keys),
+                self._py_cap, self._sp_blob, self._sp_offs, self._sp_lens,
+                self._sp_ids, len(self._sp_ids),
             )
-        self._sp_ok = True
         return True
 
     def encode_with_specials(self, data: bytes, num_threads: int = 4):
@@ -317,36 +364,11 @@ class NativeEngine:
         segment + interleaved list materialization (special-dense chat
         text has ~30k tiny segments per MB; per-segment calls pay µs
         each). None => caller falls back."""
-        if (self._py is None or not getattr(self, "_sp_ok", False)
+        if (self._py is None or not self._sp_ok
                 or not hasattr(self._py, "encode_with_specials")):
             return None
         return self._py.encode_with_specials(self._py_cap, data,
                                              num_threads)
-
-    def find_specials(self, data: bytes):
-        """(byte_pos int64 array, id int32 array) of every installed
-        special's occurrence, with ``HostEngine.find_all_specials``'
-        selection over the FULL installed set. None => caller falls back
-        (no table installed)."""
-        if not getattr(self, "_sp_ok", False):
-            return None
-        n = len(data)
-        if n == 0:
-            return np.empty(0, np.int64), np.empty(0, np.int32)
-        cap = 1024
-        while True:
-            pos = np.empty(cap, np.int64)
-            ids = np.empty(cap, np.int32)
-            cnt = self._lib.td_find_specials(
-                self._h, data, n, pos.ctypes.data, ids.ctypes.data, cap
-            )
-            if cnt == -3:
-                return None
-            if cnt >= 0:
-                return pos[:cnt], ids[:cnt]
-            cap *= 8  # -1: capacity overflow; worst case one match/byte
-            if cap > 8 * n + 1024:
-                cap = n + 1
 
     def __del__(self):
         h = getattr(self, "_h", None)
@@ -447,7 +469,7 @@ SPLICE_RANKLESS = -2
 SPLICE_MISCOUNT = -3
 
 
-class NativeSplicer:
+class NativeSplicer(_SpecialScan):
     """The native splice of a device window's missed pieces (``td_splice``)
     over a vocab-only engine: the whole-piece hash and the byte-pair LUT,
     which are all its merge reads, and the kimi class table, whose HAN bit
@@ -455,7 +477,8 @@ class NativeSplicer:
     Raises RuntimeError without a toolchain or for a vocabulary the
     engine cannot hold (``_install_vocab``). Thread-safe, as
     ``NativeEngine`` is. A window of at least 1,024 misses resolves them
-    on ``threads`` threads."""
+    on ``threads`` threads. Its handle also holds the device engine's
+    special-token scan, once ``set_specials`` installs it."""
 
     def __init__(self, ranks: dict[bytes, int], byte_rank: np.ndarray):
         from ..unicode_tables import kimi_classes

@@ -104,8 +104,14 @@ struct Tables {
   std::vector<SpEntry> sp_short;      // len < 4, length-descending
   const uint8_t* sp_blob = nullptr;
   bool sp_ready = false;
-  int sp_first = -1;                  // sole distinct first byte, or -1
+  // the specials' distinct first bytes where they are at most
+  // kSpFirstMax (the scan skips to the nearest with memchr), else empty
+  std::vector<uint8_t> sp_firsts;
 };
+
+// most distinct first bytes of the specials that td_find_specials_l skips
+// to with one memchr each (kimi's 256 specials start with '<' or '[')
+constexpr size_t kSpFirstMax = 4;
 
 // scanner profiles, carried in Tables.contractions (backwards compatible:
 // 0/1 keep their original off/on meaning for the o200k family)
@@ -669,7 +675,7 @@ void td_set_vocab(void* h, const uint8_t* keys_blob, const int64_t* offs,
 // Install the special-token scan table: blob holds every special token's
 // UTF-8 bytes concatenated; offs/lens/ids are parallel arrays of length n
 // (ids = the special RANKS). Borrowed blob, same 24-bit-offset packing as
-// td_set_vocab. Silently not installed (td_find_specials then returns -3,
+// td_set_vocab. Silently not installed (td_find_specials_l then returns -3,
 // caller keeps the Python scan) when a token is empty/>255 B or the blob
 // exceeds 16 MB.
 void td_set_specials(void* h, const uint8_t* blob, const int64_t* offs,
@@ -689,8 +695,7 @@ void td_set_specials(void* h, const uint8_t* blob, const int64_t* offs,
   while (cap < (uint64_t)(n * 2)) cap <<= 1;
   t->sp_map4.assign(cap, Tables::Sp4Slot{0, -1});
   t->sp_map4_mask = cap - 1;
-  int first = -1;
-  bool first_unique = true;
+  std::vector<uint8_t> firsts;
   // ascending-length insert + push-front chains => every chain walks
   // length-DESCENDING (the longest-at-tie selection order)
   std::vector<int64_t> order(n);
@@ -707,8 +712,8 @@ void td_set_specials(void* h, const uint8_t* blob, const int64_t* offs,
       uint32_t bg = ((uint32_t)k[0] << 8) | k[1];
       t->sp_big[bg >> 6] |= 1ull << (bg & 63);
     }
-    if (first == -1) first = k[0];
-    else if (first != (int)k[0]) first_unique = false;
+    if (std::find(firsts.begin(), firsts.end(), k[0]) == firsts.end())
+      firsts.push_back(k[0]);
     Tables::SpEntry e{(uint32_t)offs[i], lens[i], ids[i], -1};
     if (lens[i] < 4) {
       t->sp_short.insert(t->sp_short.begin(), e);  // keep descending
@@ -723,7 +728,8 @@ void td_set_specials(void* h, const uint8_t* blob, const int64_t* offs,
     t->sp_entries.push_back(e);
     t->sp_map4[j] = Tables::Sp4Slot{key, (int32_t)t->sp_entries.size() - 1};
   }
-  t->sp_first = first_unique ? first : -1;
+  if (firsts.size() > kSpFirstMax) firsts.clear();
+  t->sp_firsts = firsts;
   t->sp_ready = true;
 }
 
@@ -744,13 +750,25 @@ int64_t td_find_specials_l(const void* h, const uint8_t* data, int64_t n,
       (t->sp_one[0] | t->sp_one[1] | t->sp_one[2] | t->sp_one[3]) != 0;
   int64_t cnt = 0;
   int64_t i = 0;
+  // few distinct first bytes (one for the "<|...|>" family): a vectorized
+  // skip to the nearest next occurrence of any of them; next[k] is the
+  // next occurrence of sp_firsts[k] at or after the last search (n: none)
+  const size_t nf = t->sp_firsts.size();
+  int64_t next[kSpFirstMax];
+  for (size_t k = 0; k < nf; ++k) next[k] = -1;
   while (i < n) {
-    if (t->sp_first >= 0 && !has1) {
-      // one distinct first byte (the common "<|...|>" family): vectorized
-      // skip to its next occurrence
-      const void* p = std::memchr(data + i, t->sp_first, (size_t)(n - i));
-      if (!p) break;
-      i = (const uint8_t*)p - data;
+    if (nf) {
+      int64_t best = n;
+      for (size_t k = 0; k < nf; ++k) {
+        if (next[k] < i) {
+          const void* p =
+              std::memchr(data + i, t->sp_firsts[k], (size_t)(n - i));
+          next[k] = p ? (const uint8_t*)p - data : n;
+        }
+        best = next[k] < best ? next[k] : best;
+      }
+      if (best >= n) break;
+      i = best;
     }
     bool cand = false;
     if (i + 1 < n) {
@@ -808,11 +826,6 @@ int64_t td_find_specials_l(const void* h, const uint8_t* data, int64_t n,
     ++i;
   }
   return cnt;
-}
-
-int64_t td_find_specials(const void* h, const uint8_t* data, int64_t n,
-                         int64_t* out_pos, int32_t* out_id, int64_t cap) {
-  return td_find_specials_l(h, data, n, out_pos, out_id, nullptr, cap);
 }
 
 // Shortest installed special's byte length (bounds the match count of a

@@ -141,7 +141,6 @@ class Tokenizer:
         self._native_tried = False
         self._native_lock = threading.Lock()
         self._host_decode = None    # numpy decode tables, lazily
-        self._sp_id_lens = None     # special id -> UTF-8 length, lazily
         self._decode = None         # decode tables on the device, lazily
         self._decode_lengths = None  # numpy copy of their lengths
         self._sorted_bytes = None   # token_byte_values, built lazily
@@ -257,6 +256,14 @@ class Tokenizer:
             return (nbytes >= self._DEVICE_AUTO_MIN_BYTES
                     and self._device_dispatch_ms() < self._DEVICE_HEALTHY_MS)
         return True
+
+    def _encode_on_device(self, texts: Sequence[str]) -> bool:
+        """The routing of one encode call. Only "auto" reads the texts'
+        UTF-8 size (``_nbytes`` encodes each non-ASCII text): "device" and
+        "host" route without it, so the engine encodes each text once."""
+        if self.backend == "auto":
+            return self._use_device(self._nbytes(texts))
+        return self.backend == "device"
 
     @staticmethod
     def _nbytes(texts: Sequence[str]) -> int:
@@ -381,20 +388,20 @@ class Tokenizer:
                         min(8, os.cpu_count() or 4)))
                 if lst is not None:
                     return lst
-            found = native.find_specials(data)
+            found = native.find_specials_l(data)
             if found is not None:
-                pos, ids = found
+                pos, ids, lens = found
                 if not len(pos):
                     return self._encode_ordinary_bytes(native, data)
-                sp_len = self._special_id_byte_lens()
                 out: list[int] = []
                 prev = 0
-                for p, sid in zip(pos.tolist(), ids.tolist()):
+                for p, sid, n in zip(pos.tolist(), ids.tolist(),
+                                     lens.tolist()):
                     if prev < p:
                         out.extend(self._encode_ordinary_bytes(
                             native, data[prev:p]))
                     out.append(sid)
-                    prev = p + sp_len[sid]
+                    prev = p + n
                 if prev < len(data):
                     out.extend(self._encode_ordinary_bytes(native,
                                                            data[prev:]))
@@ -406,13 +413,6 @@ class Tokenizer:
             else:
                 out.extend(self._host_encode_ordinary(seg))
         return out
-
-    def _special_id_byte_lens(self) -> dict[int, int]:
-        """id -> UTF-8 byte length of the special's text (cached)."""
-        if self._sp_id_lens is None:
-            self._sp_id_lens = {i: len(t.encode("utf-8"))
-                                for t, i in self._special_tokens.items()}
-        return self._sp_id_lens
 
     def _encode_ordinary_bytes(self, native, data: bytes) -> list[int]:
         """Ordinary encode of a UTF-8 byte segment through the native
@@ -438,7 +438,7 @@ class Tokenizer:
     def encode_ordinary(self, text: str) -> list[int]:
         with span("td.encode_ordinary"):
             try:
-                if self._use_device(self._nbytes((text,))):
+                if self._encode_on_device((text,)):
                     return self._get_device().encode_ordinary_batch(
                         [text])[0]
                 return self._host_encode_ordinary(text)
@@ -457,7 +457,7 @@ class Tokenizer:
                                                         disallowed_special)
             self._check_disallowed((text,), disallowed)
             try:
-                if self._use_device(self._nbytes((text,))):
+                if self._encode_on_device((text,)):
                     return self._get_device().encode_batch([text],
                                                            allowed)[0]
                 return self._host_encode(text, allowed)
@@ -491,7 +491,7 @@ class Tokenizer:
             allowed, disallowed = self._resolve_special(allowed_special,
                                                         disallowed_special)
             self._check_disallowed(text, disallowed)
-            if self._use_device(self._nbytes(text)):
+            if self._encode_on_device(text):
                 return self._get_device().encode_batch(list(text), allowed)
             native = self._get_native()
             if native is not None and not allowed and native._py is not None:
@@ -589,7 +589,7 @@ class Tokenizer:
             allowed, disallowed = self._resolve_special(allowed_special,
                                                         disallowed_special)
             self._check_disallowed(text, disallowed)
-            if self._use_device(self._nbytes(text)):
+            if self._encode_on_device(text):
                 return [np.asarray(ids, dtype=np.int64)
                         for ids in self._get_device().encode_batch(list(text),
                                                                    allowed)]
